@@ -20,7 +20,7 @@ from .models.driver import DVBS2Stream
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="TPU DVB-S/S2 demodulator")
+    ap = argparse.ArgumentParser(description="DVB-S/S2 demodulator")
     ap.add_argument("--iq", required=True,
                     help="IQ file, or udp://[host]:port for live ingest "
                          "(2 samples/symbol unless --samplerate "
@@ -60,18 +60,6 @@ def main(argv=None):
     ap.add_argument("--auto-modcod", action="store_true")
     ap.add_argument("--block-symbols", type=int, default=1 << 17)
     ap.add_argument("--ldpc-trials", type=int, default=32)
-    ap.add_argument("--fec", default="xla", choices=["xla", "pallas"],
-                    help="LDPC decoder: xla (any block size, the CPU "
-                         "default) or the int8 B=128 Pallas kernel — "
-                         "small blocks are cyclically lane-padded at "
-                         "ZERO extra cost (int8 lanes are 128 wide "
-                         "regardless; 8x cheaper per frame than xla "
-                         "on chip, PROFILE_r4.md)")
-    ap.add_argument("--viterbi", default="auto",
-                    choices=["auto", "xla", "pallas"],
-                    help="DVB-S ACS decoder: the VMEM-resident Pallas "
-                         "radix-8 kernel (TPU) or the XLA scan; auto "
-                         "picks pallas on a TPU backend")
     ap.add_argument("--state-file", default=None,
                     help="checkpoint/resume: restore stream state from "
                          "this file at startup (if it exists) and write "
@@ -94,6 +82,8 @@ def main(argv=None):
                          "[pilots|nopilots]', 'udp <host:port>|off', "
                          "'metrics'")
     args = ap.parse_args(argv)
+    from . import compile_cache
+    compile_cache.enable()
 
     cfgfile = Config(args.config) if args.config else Config(autosave=False)
     mc = args.modcod if args.modcod is not None else \
@@ -127,8 +117,7 @@ def main(argv=None):
         return DVBS2Stream(mc=mc, short=short, pilots=pilots,
                            block_symbols=args.block_symbols,
                            auto_modcod=args.auto_modcod,
-                           max_ldpc_trials=args.ldpc_trials,
-                           fec=args.fec)
+                           max_ldpc_trials=args.ldpc_trials)
 
     def make_emit(snk):
         if snk is None:
@@ -146,11 +135,8 @@ def main(argv=None):
     bank = None
     if args.mode == "s2" and C > 1:
         from .models.bank_stream import DVBS2BankStream
-        from .parallel.mesh import bank_block_symbols
-        bank_bs = bank_block_symbols(C, mc=mc, short=short, pilots=pilots) \
-            if args.fec == "pallas" else args.block_symbols
         bank = DVBS2BankStream(C, mc=mc, short=short, pilots=pilots,
-                               block_symbols=bank_bs, fec=args.fec,
+                               block_symbols=args.block_symbols,
                                max_ldpc_trials=args.ldpc_trials,
                                auto_modcod=args.auto_modcod)
         streams = [bank]
@@ -159,8 +145,7 @@ def main(argv=None):
         # carrier gets its own auto-locking stream instead
         from .parallel.dvbs_bank import DVBSBankStream
         bank = DVBSBankStream(C, rate=args.rate,
-                              block_samples=2 * args.block_symbols,
-                              viterbi_impl=args.viterbi)
+                              block_samples=2 * args.block_symbols)
         streams = [bank]
     else:
         streams = [make_stream() for _ in range(C)]

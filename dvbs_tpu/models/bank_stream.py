@@ -46,10 +46,10 @@ class DVBS2BankStream:
 
     def __init__(self, n_carriers: int, mc: int = 4, short: bool = False,
                  pilots: bool = False, block_symbols: int | None = None,
-                 fec: str = "auto", ingest: str = "f16",
+                 ingest: str = "f16",
                  n_iters: int = 12, max_ldpc_trials: int = 32,
                  sof_threshold: float = 0.6,
-                 interpret_pallas: bool = False, program=None,
+                 interpret: bool = False, program=None,
                  auto_modcod: bool = True, on_modcod_switch=None,
                  vote_frames: int = 50):
         self.C = n_carriers
@@ -57,8 +57,8 @@ class DVBS2BankStream:
         self.ingest = ingest
         self.n_iters = n_iters
         self._build_opts = dict(
-            fec=fec, n_iters=n_iters, max_ldpc_trials=max_ldpc_trials,
-            interpret_pallas=interpret_pallas)
+            n_iters=n_iters, max_ldpc_trials=max_ldpc_trials,
+            interpret=interpret)
         self.auto_modcod = auto_modcod
         self.on_modcod_switch = on_modcod_switch
         # per-carrier confidence-gated PLS vote (reference main.cpp:383-
@@ -99,9 +99,8 @@ class DVBS2BankStream:
                 self.C, mc=mc, short=short, pilots=pilots,
                 block_symbols=block_symbols,
                 n_iters=self._build_opts["n_iters"],
-                fec=self._build_opts["fec"],
                 ingest="cs4" if self.ingest == "cs4" else "cs8",
-                interpret_pallas=self._build_opts["interpret_pallas"],
+                interpret=self._build_opts["interpret"],
                 stream_outputs=True,
                 n_iters_full=self._build_opts["max_ldpc_trials"])
         # geometry mirrors DVBS2Receiver (mesh builds the same core)

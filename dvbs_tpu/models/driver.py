@@ -56,12 +56,10 @@ class DVBS2Stream:
 
     def __init__(self, mc: int = 4, short: bool = False, pilots: bool = False,
                  block_symbols: int = 1 << 17, auto_modcod: bool = False,
-                 max_ldpc_trials: int = 32, fec: str = "xla",
-                 dummy_aware: bool = False):
+                 max_ldpc_trials: int = 32, dummy_aware: bool = False):
         self.auto_modcod = auto_modcod
         self.block_symbols = block_symbols
         self.max_ldpc_trials = max_ldpc_trials
-        self.fec = fec
         self.dummy_aware = dummy_aware
         # called with the new ModcodConfig after a successful auto-MODCOD
         # switch — the CLI hooks this to persist the vote to Config, as
@@ -78,7 +76,6 @@ class DVBS2Stream:
         self.rx = DVBS2Receiver(mc=mc, short=short, pilots=pilots,
                                 block_symbols=self.block_symbols,
                                 max_ldpc_trials=self.max_ldpc_trials,
-                                fec=self.fec,
                                 dummy_aware=self.dummy_aware)
         self.cfg = self.rx.cfg
         self.parser = make_bbframe_parser(self.cfg.kbch)

@@ -1,1 +1,1 @@
-"""TPU compute ops (JAX/XLA/Pallas): the hot kernels of the receive chain."""
+"""Device compute ops (JAX/XLA/Pallas): the hot kernels of the receive chain."""

@@ -1,11 +1,11 @@
-"""BCH syndrome computation on TPU as a GF(2) matmul.
+"""BCH syndrome computation on device as a GF(2) matmul.
 
 The reference computes syndromes bit-serially per frame over GF(2^16)
 (/root/reference/src/demod/dvbs2/codings/bch/bose_chaudhuri_hocquenghem_decoder.hh:41-71).
-On TPU the whole syndrome vector is one matmul: S_j = c(alpha^j) is
+On device the whole syndrome vector is one matmul: S_j = c(alpha^j) is
 GF(2)-linear in the codeword bits, so with M[i, (j,b)] = bit b of
 alpha^(j*(nbch-1-i)), the packed syndrome bits are (bits @ M) mod 2 —
-an [F, nbch] x [nbch, 2t*m] int matmul that rides the MXU.  A frame is
+an [F, nbch] x [nbch, 2t*m] 0/1 matmul.  A frame is
 clean iff its syndrome row is all zero; only dirty frames go to the host
 Berlekamp-Massey repair path.
 """
@@ -40,7 +40,10 @@ def syndrome_nonzero(code_bits: jax.Array, framesize: str, rate: str
                      ) -> jax.Array:
     """code_bits [F, nbch] (0/1) -> [F] bool: True when syndromes != 0."""
     M = jnp.asarray(syndrome_matrix(framesize, rate), jnp.float32)
+    # exact at any precision (TF32 included): 0/1 operands, f32 sums of
+    # at most nbch < 2^24 ones
     s = jnp.dot(code_bits.astype(jnp.float32), M,
+                precision=jax.lax.Precision.DEFAULT,
                 preferred_element_type=jnp.float32)
     odd = jnp.mod(s, 2.0)
     return (odd > 0.5).any(axis=1)

@@ -10,7 +10,7 @@ reduce, with our unit-power point tables, to a (sample_scale, point_scale)
 pair per constellation — derived in ops/demap.py history: QPSK (3,2),
 8PSK (1,1), 16APSK (53,50), 32APSK (54,50).
 
-Unlike the reference we evaluate the formula directly on TPU instead of a
+Unlike the reference we evaluate the formula directly on device instead of a
 256x256 LUT — the vectorized exact computation is cheaper than a gather.
 Output is standard bit order (y0 first), positive LLR = bit 0, matching
 the LDPC decoder's convention.

@@ -7,7 +7,7 @@ instantiates but leaves disabled (module_dvbs2_demod.cpp:50,84,242).
 Here it is enabled on demand via DVBS2Receiver(equalize=True), which
 inserts it after timing recovery, before PL sync (models/dvbs2.py).
 
-TPU formulation: instead of the per-sample stochastic update, the block
+Block formulation: instead of the per-sample stochastic update, the block
 is split into chunks; each chunk solves a small regularized
 least-squares fit of the taps to the slicer decisions (block LMS /
 Wiener step), carried across chunks by averaging with the previous taps

@@ -58,11 +58,13 @@ def unpack_cs4(packed: jax.Array) -> jax.Array:
 
 def pack_bits_to_bytes(bits: jax.Array) -> jax.Array:
     """Device-side MSB-first bit packing: [..., 8k] {0,1} -> [..., k]
-    uint8, as a float dot against [128..1] so XLA tiles it onto the MXU
-    (a uint8 shift-or chain lowers to serial vector ops instead)."""
+    uint8, as a float dot against [128..1]."""
     w = jnp.asarray([128, 64, 32, 16, 8, 4, 2, 1], jnp.float32)
     b = bits.reshape(*bits.shape[:-1], bits.shape[-1] // 8, 8)
+    # exact at any precision (TF32 included): 0/1 times powers of two,
+    # sums <= 255
     return jnp.dot(b.astype(jnp.float32), w,
+                   precision=jax.lax.Precision.DEFAULT,
                    preferred_element_type=jnp.float32).astype(jnp.uint8)
 
 
@@ -113,7 +115,7 @@ _FIR_BLK = 256
 def _fir_matrix(taps_key, blk: int) -> np.ndarray:
     """Banded FIR matrix T [blk+K-1, blk] with T[j, col] = taps[j-col]:
     windows @ T evaluates the centered FIR for blk consecutive outputs
-    as one matmul (same MXU trick as plsync._template_matrix)."""
+    as one matmul (as plsync._template_matrix does)."""
     taps = np.asarray(taps_key, np.float32)
     K = len(taps)
     T = np.zeros((blk + K - 1, blk), np.float32)
@@ -126,21 +128,18 @@ def fir_filter(x: jax.Array, taps: np.ndarray,
                bf16: bool = True) -> jax.Array:
     """Centered FIR ('same' length). Complex in, real taps.
 
-    Long filters on long blocks run on the MXU: overlapping [blk+K-1]
-    windows of the padded input times a banded tap matrix, two matmuls.
-    bf16=True (default) runs them as single-pass bf16 with f32
+    Long filters on long blocks run as matrix products: overlapping
+    [blk+K-1] windows of the padded input times a banded tap matrix.
+    bf16=True (default) runs them as bf16 operands with f32
     accumulation — at the receiver's operating point the input is
     4..8-bit quantized IQ well below the AWGN floor, so the bf16
     rounding (8-bit mantissa per product) is invisible next to channel
-    noise while costing 6x less MXU time than a HIGHEST-precision f32
-    matmul (which decomposes into 6 bf16 passes). This covers every
-    MXU-path caller — the RRC matched filter AND the timing-recovery
-    interpolators (_mid_taps K=24, _halfband_taps K=47); the bf16
-    error bound is asserted on all three tap sets in
-    tests/test_frontend_ops.py. Short filters/blocks
-    use static shift-and-add (single-channel 1-D convolution lowers
-    terribly on TPU; K shifted multiply-adds vectorize on the VPU but
-    cost K full passes).
+    noise. This covers every matmul-path caller — the RRC matched
+    filter AND the timing-recovery interpolators (_mid_taps K=24,
+    _halfband_taps K=47); the bf16 error bound is asserted on all three
+    tap sets in tests/test_frontend_ops.py. bf16=False keeps f32 at
+    HIGHEST precision (no TF32 rounding). Short filters/blocks use
+    static shift-and-add (K shifted multiply-adds).
     """
     taps = np.asarray(taps, np.float32)
     K = len(taps)
@@ -165,7 +164,7 @@ def fir_filter(x: jax.Array, taps: np.ndarray,
                                     preferred_element_type=jnp.float32)
             wr, wi = jnp.real(w), jnp.imag(w)
         # one matmul for re+im (rows are independent): [2nb, blk+K-1] x
-        # [blk+K-1, blk] — identical numerics, half the MXU dispatches
+        # [blk+K-1, blk] — identical numerics, half the dispatches
         y = dot(jnp.concatenate([wr, wi], axis=0), T)
         re = y[:nb].reshape(nb * blk)[:n]
         im = y[nb:].reshape(nb * blk)[:n]
@@ -261,10 +260,6 @@ def resample_at(y: jax.Array, t: jax.Array, n_phases: int = 128,
 
 
 _RESAMPLE_SPAN = 4    # max |t(k) - 2k| the gather-free resampler supports
-# (selector candidate count is 2*SP+3; SP=4 measured 30.4 ms vs 33.4 ms
-# at SP=8 for the 8-carrier bench bank with identical decode quality —
-# tools/measure_r4.py. The in-window drift bound 2*(S/W)*_MAX_SCO must
-# stay under 2*SP-2; _auto_windows grows W for large blocks.)
 
 
 def resample_half_grid(y: jax.Array, t: jax.Array, S_out: int,
@@ -274,14 +269,12 @@ def resample_half_grid(y: jax.Array, t: jax.Array, S_out: int,
     y: [..., >= 2*S_out + 6*_RESAMPLE_SPAN] samples; t: [..., S_out]
     positions into y (per leading-dim window) with t[k] - 2k in
     [_RESAMPLE_SPAN, 3*_RESAMPLE_SPAN] (the caller rebases so the drift
-    fits this band).  TPU gathers serialize; the 8-tap window is
-    assembled by one-hot selection over contiguous even/odd-phase
-    slices, and the per-symbol filter comes from a one-hot
-    [..., n_phases] matmul against the bank (rides the MXU).
-    Only tests exercise this path now — the hot path is the
-    barrel-shifter + Farrow formulation in resample_windowed (this
-    selector was HBM-bound at 14 ms a bank block, PROFILE_r4.md); it is
-    kept as the independently-validated brute-force oracle
+    fits this band).  The 8-tap window is assembled by one-hot
+    selection over contiguous even/odd-phase slices, and the per-symbol
+    filter comes from a one-hot [..., n_phases] matmul against the bank.
+    Only tests exercise this path — the hot path is the barrel-shifter
+    + Farrow formulation in resample_windowed; this is kept as the
+    independently-validated brute-force oracle
     (tests/test_frontend_ops.py).
     """
     SP = _RESAMPLE_SPAN
@@ -300,13 +293,11 @@ def resample_half_grid(y: jax.Array, t: jax.Array, S_out: int,
     onehot = base[..., None] == jnp.arange(c_lo, c_hi + 1)
     bank = jnp.asarray(interp_bank(n_phases, n_taps))  # [128, 8]
     ph1h = (ph[..., None] == jnp.arange(n_phases)).astype(jnp.float32)
-    taps = jnp.dot(ph1h, bank,
+    # a one-hot row selection: HIGHEST keeps the selected bank taps
+    # exact (TF32 would round them to 10 mantissa bits)
+    taps = jnp.dot(ph1h, bank, precision=jax.lax.Precision.HIGHEST,
                    preferred_element_type=jnp.float32)  # [..., S, 8]
-    # window assembly by one-hot select in lane-major vectors. (A "fold
-    # the select into [S, nc+7] coefficients" variant looked 4x cheaper
-    # by op count but measured ~10x SLOWER on hardware: the [S, 26]
-    # arrays sit far below the 128-lane tile, so every column
-    # update/extract is a relayout.)
+    # window assembly by one-hot select
     out = jnp.zeros(t.shape, y.dtype)
     for j in range(n_taps):
         acc = jnp.zeros(t.shape, y.dtype)
@@ -398,34 +389,12 @@ def recover_symbols_full(y2: jax.Array, n_windows: int = 8,
     if pw_ok:
         tau_end_pw = tau_u[-1] + d[-1] * (pos - centers[-1]) / win
         tau_end = jnp.where(use_pw, tau_end_pw, tau_end)
-    return dispatch_resample(y2, t), tau_u, tau_end
+    with jax.named_scope("resample"):
+        z = resample_windowed(y2, t)
+    return z, tau_u, tau_end
 
 
 _MAX_SCO = 250e-6   # symbol-clock error the windowing must absorb
-
-
-def _auto_windows(S: int) -> int:
-    """Window count for the selector: prefer 64, drop for small blocks.
-
-    Measured on hardware at bench scale (tools/measure_r3.py): W=64 runs
-    FASTER than W=32/16 (31.9 vs 38.5 ms fused core) even though the
-    select-op count scales with W — the total element work is constant
-    (W x 152 ops of length S/W) and XLA interleaves the independent
-    windows better at finer granularity. So keep the historical 64 and
-    only shrink when S doesn't divide or windows would get tiny; the
-    in-window drift headroom (~2*SP-2 samples per 2*S/W-sample window)
-    covers _MAX_SCO at every allowed combination."""
-    W = 64
-    while W > 4 and (S % W or S // W < 1024):
-        W //= 2
-    if S % W:
-        raise ValueError(f"no power-of-two window count divides {S}")
-    allow = 2 * _RESAMPLE_SPAN - 2
-    # very large blocks: more windows, so in-window drift fits the span
-    while 2 * (S / W) * _MAX_SCO > allow and S % (2 * W) == 0:
-        W *= 2
-    assert 2 * (S / W) * _MAX_SCO <= allow, (S, W)
-    return W
 
 
 # ---------------------------------------------------------------------------
@@ -434,10 +403,9 @@ def _auto_windows(S: int) -> int:
 # The LUT-free successor of the one-hot polyphase selector: evaluating
 # the (normalized) interpolation taps as polynomials of the continuous
 # delay d costs ~100 f32 fused multiply-adds per symbol on [W, w]-shaped
-# arrays — no one-hot matmul ([S, 128] f32 = 280 MB of HBM traffic per
-# carrier), no candidate where-selects (88 masked passes over the
-# stream), both of which made the selector HBM-bound at 14+ ms per bank
-# block (PROFILE_r4.md). Accuracy: the fit residual is held below the
+# arrays — no one-hot matmul ([S, 128] f32 = 280 MB of memory traffic
+# per carrier) and no candidate where-selects (88 masked passes over
+# the stream). Accuracy: the fit residual is held below the
 # bank's own 128-phase quantization error (asserted in
 # tests/test_frontend_ops.py).
 # ---------------------------------------------------------------------------
@@ -461,7 +429,7 @@ def _shift_bits_for(n_symbols: int) -> int:
     Sizing the barrel to this bound instead of the fixed 10-bit range
     removes the top stages AND their padding columns — each saved bit
     cuts one full [nt, width] masked pass and halves the extra width
-    (the stage traffic that dominates the timing stage, PROFILE_r4.md).
+    (the stage traffic that dominates the timing stage).
     Inputs whose drift exceeds the bound degrade exactly as before
     (rb is clipped; the quality gates reject those tiles' frames).
     """
@@ -492,25 +460,7 @@ def _farrow_coeffs(n_taps: int = 8):
     return coef.T.astype(np.float32), mid, halfr   # [TAPS, DEG+1]
 
 
-RESAMPLER_IMPL = "auto"     # "auto" | "xla" | "pallas" (trace-time)
-
-
-def dispatch_resample(y2: jax.Array, t: jax.Array) -> jax.Array:
-    """Route the barrel+Farrow resampler: the fused Pallas kernel on a
-    real TPU backend, the XLA formulation on CPU (Mosaic cannot compile
-    there; interpret mode is ~100x slower than XLA). Same numerics
-    either way (tests/test_resample_pallas.py)."""
-    impl = RESAMPLER_IMPL
-    if impl == "auto":
-        impl = "xla" if jax.default_backend() == "cpu" else "pallas"
-    if impl == "pallas":
-        from .resample_pallas import resample_windowed_pallas
-        return resample_windowed_pallas(y2, t)
-    return resample_windowed(y2, t)
-
-
-def resample_windowed(y2: jax.Array, t: jax.Array,
-                      n_windows: int | None = None) -> jax.Array:
+def resample_windowed(y2: jax.Array, t: jax.Array) -> jax.Array:
     """Symbol-grid resampling with unbounded (slow) linear drift, fully
     vectorized: a tile-granular BARREL SHIFTER aligns the integer part
     of the delay (log2 masked static-slice stages over [T, cols] rows —
@@ -525,11 +475,9 @@ def resample_windowed(y2: jax.Array, t: jax.Array,
     the Farrow band's headroom.
 
     The selector this replaces (one-hot over 11 candidates x 8 taps +
-    a [S, 128] one-hot tap matmul) was HBM-bound at 14+ ms per 8-carrier
-    bank block; this formulation is ~10 masked passes + ~100 f32 FMAs
-    per symbol (PROFILE_r4.md).
+    a [S, 128] one-hot tap matmul) was memory-bound; this formulation is
+    ~10 masked passes + ~100 f32 FMAs per symbol.
     """
-    del n_windows                     # legacy knob (window-free now)
     S = t.shape[-1]
     TS = _TILE_SYM
     nt = -(-S // TS)
@@ -576,10 +524,8 @@ def resample_windowed(y2: jax.Array, t: jax.Array,
         rows = jnp.where(bit, rows[:, step:], rows[:, :w0])
     # rows now [nt, 2*TS + TAPS - 1 + ...]: column (2j + c) = the c-th
     # tap sample of symbol j.  Split the even/odd sample planes ONCE
-    # (two stride-2 relayouts) so each tap reads a CONTIGUOUS [nt, TS]
-    # slice — the previous per-tap stride-2 slices were 10 strided
-    # relayout passes over the full rows array (strided lane slices
-    # are the same pattern that sank the bf16 barrel, PROFILE_r4.md)
+    # (two stride-2 copies) so each tap reads a CONTIGUOUS [nt, TS]
+    # slice instead of 10 strided passes over the full rows array
     rows_e = rows[:, 0::2]
     rows_o = rows[:, 1::2]
     out = jnp.zeros((nt, TS), y2.dtype)

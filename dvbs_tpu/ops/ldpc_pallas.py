@@ -1,36 +1,35 @@
-"""Quasi-cyclic layered LDPC decoder — Pallas TPU kernel (int8, B=128).
+"""Quasi-cyclic layered LDPC decoder — Pallas kernel for Hopper (Triton).
 
-The high-throughput companion of ops/ldpc_qc.py (pure XLA, B<=24): the
-same offset-min-sum layered schedule over the same QC structure
-(qc_tables), but engineered for the hardware limits instead of around
-XLA's scheduler:
+The same int8 offset-min-sum layered schedule over the same QC structure
+as the XLA decoder (ops/ldpc_qc.py, qc_tables), written as ONE program
+per frame:
 
-- batch B = 128 frames on the LANE axis (one int8 tile wide) — the
-  xdsopl reference tops out at 16 SIMD lanes (bbframe_ldpc.h:19-27)
-- posteriors int8, padded to [(G+q)*384, 128] (384 = 3 sublane tiles),
-  resident in VMEM for the whole decode (~8.9 MB)
-- check-to-variable messages int8 in HBM ([q, Dmax, 384, 128]), streamed
-  one layer per grid step by the Pallas pipeline (auto double-buffered),
-  so the message working set never caps the batch — the "HBM-streamed
-  B=128" design CLAUDE.md round-1 notes called the ~10x headroom
-- cyclic shifts of the 360-row groups via a doubled scratch buffer and
-  one dynamic-start static-size slice (no gathers)
-- all layer entries (info groups, current parity, previous parity with
-  its layer-0 wrap mask) are uniform (group, shift, flags) rows of a
-  scalar-prefetched table, so the kernel body is one static Dmax loop
-  compiled once and swept by the (iteration, layer) grid
+- the grid is the frame axis: a program decodes its frame alone, so any
+  frame count works (no padding) and the 128-frame bank block spreads
+  over the card's streaming multiprocessors one frame each;
+- the frame's posterior ([(G+q)*360] int8) and check-to-variable
+  messages ([q, Dmax, 360] int8) live in device-memory outputs that the
+  program owns (~290 KB a frame at rate 1/2, so a 128-frame block stays
+  inside the 50 MB L2 cache);
+- every sweep runs inside the program, and the program stops at the
+  first sweep whose in-kernel online syndrome is zero (per-frame early
+  exit, the reference's `while bad() && trials--`,
+  layered_decoder.hh:121-133);
+- the program reads its own (group, shift, flags) schedule table;
+- the cyclic shift of a 360-row group is a masked gather of a 512-wide
+  vector (row m reads row (m - s) mod 360), and the write-back scatters
+  to the same addresses.
 
-Arithmetic is int32 internally (this target's Mosaic rejects int16
-vector comparisons) with saturation to int8 on store — the same numeric
-family as the reference's int8 SIMD decoder
-(dvbs2/codings/xdsopl-ldpc-pabr/, generic.hh SIMD ops).
+Within a program the lanes of one layer exchange data through device
+memory, so the layer is fenced with block barriers: after the reads
+(pass 1), after each wave of writes (a group that appears twice in a
+layer is written again in a later wave, after re-reading the first
+write), and at the end of the layer.
 
-Each sweep also emits the per-frame ONLINE syndrome count (parity of
-the posterior signs over every check row, accumulated in-kernel at
-~zero cost), which gives real per-frame trials-to-converge and lets
-the sweep loop exit early once the whole batch is clean — the
-reference's `while bad() && trials--` semantics
-(layered_decoder.hh:121-133) at batch granularity.
+Arithmetic is int32 with saturation to int8 on store — the numeric family
+of the reference's int8 SIMD decoder (dvbs2/codings/xdsopl-ldpc-pabr/,
+generic.hh) and bit-exact with the numpy model in
+tests/test_ldpc_pallas.py.
 """
 from __future__ import annotations
 
@@ -40,22 +39,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plt
 
-from .ldpc_qc import qc_tables, llr_to_post, post_to_hard, LANES
+from .ldpc_qc import qc_tables, LANES
 
-PAD = 384            # 360 rounded up to 3 sublane tiles of 128-lane int8
-B = 128              # frames per call (lane axis)
-
-F_VALID = 1
-F_MASK0 = 2          # wrap entry of layer 0: column 0 carries no edge
+VEC = 512            # block width: the 360 rows of a group, rounded up
+NUM_WARPS = 16       # one thread per row of the 512-wide block
 MSG_CLIP = 31        # message magnitude cap (posterior headroom, see kernel)
 
-# default layered schedule for decode_qc_pallas callers that don't pass
-# one ("natural" | "oriented", see kernel_tables_oriented) — a module
-# flag so the carrier banks and measurement tools can A/B without
-# threading a parameter through every build path
-SCHEDULE = "natural"
+# schedule-table entry: group | shift << 9 | flags << 18 | wave << 20
+_S_SHIFT, _F_SHIFT, _W_SHIFT = 9, 18, 20
+F_VALID = 1
+F_MASK0 = 2          # wrap entry of layer 0: column 0 carries no edge
 
 
 def quantize_llrs(llr: jax.Array) -> jax.Array:
@@ -72,7 +67,14 @@ def quantize_llrs(llr: jax.Array) -> jax.Array:
 
 @functools.lru_cache()
 def kernel_tables(table: str):
-    """(g_tab, s_tab, f_tab) int32 [q, Dmax] + layout constants."""
+    """Packed schedule table int32 [q, Dmax] + layout constants.
+
+    Layer r's entries are its info groups (group, shift), then the
+    current parity group (G+r, 0) and the previous one (G+r-1, 0) — for
+    r = 0 the wrap edge (G+q-1, 1) with row 0 masked. `wave` counts
+    earlier entries of the same group in the layer: wave w is written
+    after wave w-1, re-reading the group, so repeated groups accumulate
+    their deltas in schedule order."""
     t = qc_tables(table)
     G, q = t["G"], t["q"]
     rows = []
@@ -85,526 +87,213 @@ def kernel_tables(table: str):
             ents.append((G + r - 1, 0, F_VALID))
         rows.append(ents)
     Dmax = max(len(e) for e in rows)
-    g_tab = np.zeros((q, Dmax), np.int32)
-    s_tab = np.zeros((q, Dmax), np.int32)
-    f_tab = np.zeros((q, Dmax), np.int32)
+    tab = np.zeros((q, Dmax), np.int32)
+    waves = 1
     for r, ents in enumerate(rows):
+        seen: dict[int, int] = {}
         for e, (g, s, f) in enumerate(ents):
-            g_tab[r, e], s_tab[r, e], f_tab[r, e] = g, s, f
-    return dict(G=G, q=q, Dmax=Dmax, g_tab=g_tab, s_tab=s_tab, f_tab=f_tab,
+            w = seen.get(g, 0)
+            seen[g] = w + 1
+            waves = max(waves, w + 1)
+            tab[r, e] = g | (s << _S_SHIFT) | (f << _F_SHIFT) | (w << _W_SHIFT)
+    return dict(G=G, q=q, Dmax=Dmax, waves=waves, tab=tab,
                 N=t["N"], K=t["K"])
 
 
-@functools.lru_cache()
-def kernel_tables_oriented(table: str):
-    """Schedule tables for ORIENTED posterior storage.
-
-    The natural schedule pays TWO rolls per edge and sweep: pass 1
-    rolls the group's posterior into the layer's check alignment, and
-    pass 2 rolls the message delta back before the scatter. Storing
-    each group's posterior tile IN THE ORIENTATION OF ITS LAST WRITER
-    removes the pass-2 roll: pass 2 adds the delta to the pass-1
-    stash (already in layer orientation) and writes it back as-is;
-    the next reader's pass-1 shift is the static difference between
-    its own alignment and the previous writer's — all composable at
-    table-build time because the layered schedule is static.
-
-    Per-layer slot layout (static slot-mode regions; pass 2 runs in
-    slot order, so intra-layer duplicate groups land AFTER their first
-    occurrence and re-read the just-written tile with one roll):
-
-      [info first-occurrences][invalid pad][dups (rz slots)]
-      [parity r][parity r-1]
-
-    Two shift-table variants: sweep 1 starts from natural orientation
-    (o = 0); every later sweep starts from the schedule's fixed-point
-    orientation o_final (the last writer per group), which is also the
-    static un-orientation applied after the final sweep.  Bit-exact vs
-    the natural schedule (tests/test_ldpc_pallas.py).
-    """
-    base = kernel_tables(table)
-    t = qc_tables(table)
-    G, q = base["G"], base["q"]
-    rows = []
-    rz = 0
-    for r in range(q):
-        seen = set()
-        first, dups = [], []
-        for (g, s) in t["layers"][r]:
-            (dups if g in seen else first).append((g, s, F_VALID))
-            seen.add(g)
-        rz = max(rz, len(dups))
-        par = [(G + r, 0, F_VALID),
-               (G + q - 1, 1, F_VALID | F_MASK0) if r == 0
-               else (G + r - 1, 0, F_VALID)]
-        rows.append((first, dups, par))
-    # D2 == base Dmax: first-occurrences may spill into the static
-    # roll region (roll-mode is correct for ANY entry — its d is just
-    # the pass-1 read shift when nothing wrote the group this layer)
-    D2 = base["Dmax"]
-    DUMMY = G + q       # scratch group: invalid pad slots write here
-
-    def build(o0):
-        o = o0.copy()
-        g_tab = np.full((q, D2), DUMMY, np.int32)
-        f_tab = np.zeros((q, D2), np.int32)
-        rs = np.zeros((q, D2), np.int32)
-        d = np.zeros((q, D2), np.int32)
-        for r, (first, dups, par) in enumerate(rows):
-            ents_slots = [(i, e) for i, e in enumerate(first)]
-            nd = len(dups)
-            ents_slots += [(D2 - 2 - nd + i, e) for i, e in enumerate(dups)]
-            ents_slots.append((D2 - 2, par[0]))
-            ents_slots.append((D2 - 1, par[1]))
-            assert len({sl for sl, _ in ents_slots}) == len(ents_slots)
-            for sl, (g, s, f) in ents_slots:
-                g_tab[r, sl] = g
-                f_tab[r, sl] = f
-                rs[r, sl] = (s - o[g]) % LANES
-            writes = {}
-            for sl, (g, s, f) in sorted(ents_slots):
-                d[r, sl] = (s - writes.get(g, o[g])) % LANES
-                writes[g] = s
-            for g, s in writes.items():
-                o[g] = s
-        return g_tab, f_tab, rs, d, o
-
-    zeros = np.zeros(G + q + 1, np.int64)
-    g_tab, f_tab, rs1, d1, o_final = build(zeros)
-    g2, f2, rsS, dS, o2 = build(o_final.copy())
-    assert np.array_equal(o_final, o2) and np.array_equal(g_tab, g2) \
-        and np.array_equal(f_tab, f2)
-    return dict(G=G, q=q, Dmax=D2, rz=rz, g_tab=g_tab, f_tab=f_tab,
-                rs_first=rs1, d_first=d1, rs_steady=rsS, d_steady=dS,
-                o_final=np.asarray(o_final, np.int64),
-                N=base["N"], K=base["K"])
+def llr_to_frames(llr: jax.Array, G: int, q: int) -> jax.Array:
+    """[B, N] codeword order -> [B, (G+q)*360] posterior layout: info
+    bit i stays at i, parity bit a = r + q*c moves to (G+r)*360 + c."""
+    B = llr.shape[0]
+    K = G * LANES
+    par = jnp.transpose(llr[:, K:].reshape(B, LANES, q), (0, 2, 1))
+    return jnp.concatenate([llr[:, :K], par.reshape(B, q * LANES)], axis=1)
 
 
-def _kernel(g_ref, s_ref, f_ref, d_ref, post_in, msgs_in, post_out,
-            msgs_out, bad_out, vstash, roll_buf, *, Dmax, beta, n_rows,
-            lpg, roll_impl, stash8, oriented, rz):
-    # one pallas_call = ONE layered sweep; the grid walks the layers in
-    # groups of `lpg` (layers per grid step, processed SERIALLY inside
-    # the body — identical schedule semantics, ~lpg x fewer grid/DMA
-    # step overheads; the per-sweep time was grid-latency-bound).
-    # Messages are read once and written once per sweep, so the sweep is
-    # purely functional (msgs_in -> msgs_out) and sweeps chain as
-    # ordinary jit calls — XLA double-buffers the HBM arrays between
-    # them. (In-place read-back through input_output_aliases across a
-    # sweep-inside-the-grid design is NOT reliable — interpret mode
-    # showed aliased inputs never observe the kernel's own writes.)
-    step = pl.program_id(0)
-
-    # posteriors live in the (revisited, hence VMEM-resident) output
-    # block; the incoming state stays in HBM and is DMA'd in once
-    @pl.when(step == 0)
-    def _():
-        def init(sem):
-            cp = pltpu.make_async_copy(post_in, post_out, sem)
-            cp.start()
-            cp.wait()
-        pl.run_scoped(init, pltpu.SemaphoreType.DMA(()))
-
-    @pl.when(step == 0)
-    def _():
-        bad_out[:, :] = jnp.zeros((1, bad_out.shape[1]), jnp.int32)
-
-    for j in range(lpg):
-        r = step * lpg + j
-        _layer_body(g_ref, s_ref, f_ref, d_ref, msgs_in, post_out,
-                    msgs_out, bad_out, vstash, roll_buf, r=r, j=j,
-                    Dmax=Dmax, beta=beta, roll_impl=roll_impl,
-                    stash8=stash8, oriented=oriented, rz=rz)
+def frames_to_hard(post: jax.Array, G: int, q: int) -> jax.Array:
+    """Inverse of llr_to_frames on the sign: [B, (G+q)*360] -> hard
+    bits [B, N] uint8."""
+    B = post.shape[0]
+    K = G * LANES
+    par = jnp.transpose(post[:, K:].reshape(B, q, LANES), (0, 2, 1))
+    bits = jnp.concatenate([post[:, :K], par.reshape(B, q * LANES)], axis=1)
+    return (bits < 0).astype(jnp.uint8)
 
 
-def _layer_body(g_ref, s_ref, f_ref, d_ref, msgs_in, post_out, msgs_out,
-                bad_out, vstash, roll_buf, *, r, j, Dmax, beta,
-                roll_impl, stash8, oriented, rz):
-    B = post_out.shape[1]
-
-    # every elementwise tensor is padded to PAD=384 rows (tile-aligned
-    # for int16/i1 — Mosaic relayouts fail on 360-row masks). Rows
-    # 360:383 carry don't-care values: all ops are row-elementwise, so
-    # garbage never crosses into the valid rows, and neither the rolls
-    # (which read rows 0:360 only) nor the hard/syndrome consumers
-    # (perm gather / [:360] slice) ever look at the padding.
-    row0 = jax.lax.broadcasted_iota(jnp.int32, (PAD, B), 0) == 0
+def _kernel(tab_ref, llr_ref, post_ref, msg_ref, res_ref, *, q, Dmax,
+            waves, n_post, n_msg, n_iters, beta, early_exit, interpret):
+    m = jax.lax.broadcasted_iota(jnp.int32, (VEC,), 0)
+    row_ok = m < LANES
+    row0 = m == 0
     big = jnp.int32(16384)
 
-    def roll360(x, s):
-        """[PAD, B] -> [PAD, B] whose rows 0:360 are the cyclic shift
-        of x[0:360] by dynamic s in [0, 360): a static sub-8 shift
-        (lax.switch over 8 concatenations) composed with an 8-aligned
-        dynamic-start slice of a DOUBLED buffer — Mosaic requires
-        dynamic sublane offsets to be provably 8-aligned.  The slice
-        is PAD=384 rows but only rows 0:360 of the result carry edges,
-        so the buffer needs just 2*360 written rows plus 24 stale tail
-        rows (start = 360 - s_hi <= 360, end <= 744): a third copy
-        would only feed the don't-care padding rows — writing it cost
-        1/3 of the roll traffic for nothing.
+    def barrier():
+        # interpret mode runs the lanes in lockstep; on the card the
+        # lanes of a layer trade rows through device memory
+        if not interpret:
+            plt.debug_barrier()
 
-        roll_impl="prim" instead lowers the whole dynamic 360-row
-        cyclic shift to one pltpu.roll on the [360, B] slice (360 =
-        45 int32 sublane tiles, so the operand is tile-aligned) and
-        refills the 24 don't-care tail rows by concat — no switch, no
-        doubled-buffer traffic."""
-        if roll_impl == "prim":
-            r360 = pltpu.roll(x[0:LANES, :], s, axis=0)
-            return jnp.concatenate([r360, x[LANES:PAD, :]], axis=0)
-        x0 = x[0:LANES, :]
-        s_lo = jax.lax.rem(s, 8)
-        s_hi = s - s_lo
+    def copy_in(c, carry):
+        idx = c * VEC + m
+        ok = idx < n_post
+        idx = jnp.where(ok, idx, n_post + m)
+        plt.store(post_ref.at[0, idx],
+                  plt.load(llr_ref.at[0, idx], mask=ok, other=0), mask=ok)
+        return carry
 
-        def mk(k):
-            def f():
-                if k == 0:
-                    return x0
-                return jnp.concatenate([x0[LANES - k:, :],
-                                        x0[:LANES - k, :]], axis=0)
-            return f
-        x1 = jax.lax.switch(s_lo, [mk(k) for k in range(8)])
-        roll_buf[0:2 * LANES, :] = jnp.concatenate([x1, x1], axis=0)
-        start = pl.multiple_of(LANES - s_hi, 8)
-        return roll_buf[pl.ds(start, PAD), :]
+    jax.lax.fori_loop(0, -(-n_post // VEC), copy_in, 0)
+    barrier()
 
-    # ---- pass 1: variable-to-check values, running two-min ------------
-    # pxor additionally accumulates the parity of the POSTERIOR signs
-    # (the hard decisions) over the check row — the online per-layer
-    # syndrome that gives each sweep's unsatisfied-check count per frame
-    # (the reference's bad() gate, layered_decoder.hh:121-133; "online"
-    # because later layers see posteriors already updated this sweep)
-    def entry_a_neg(e):
-        g = g_ref[r, e]
-        s = s_ref[r, e]
-        fl = f_ref[r, e]
-        base = pl.multiple_of(g * PAD, PAD)
-        tile = post_out[pl.ds(base, PAD), :].astype(jnp.int32)
-        rolled = roll360(tile, s)
-        v = rolled - msgs_in[j, e].astype(jnp.int32)
-        if oriented:
-            # oriented mode stashes the ROLLED pre-layer posterior:
-            # pass 2's stash-slot write-back is stash + delta, already
-            # in layer orientation — no inverse roll
-            vstash[e] = rolled
-        elif not stash8:
-            vstash[e] = v
-        a = jnp.abs(v)
-        neg = (v < 0).astype(jnp.int32)
-        pneg = (rolled < 0).astype(jnp.int32)
-        masked = (fl & F_MASK0) != 0
-        a = jnp.where(masked & row0, big, a)
-        neg = jnp.where(masked & row0, jnp.int32(0), neg)
-        pneg = jnp.where(masked & row0, jnp.int32(0), pneg)
-        invalid = (fl & F_VALID) == 0
-        a = jnp.where(invalid, big, a)
-        neg = jnp.where(invalid, jnp.int32(0), neg)
-        pneg = jnp.where(invalid, jnp.int32(0), pneg)
-        if stash8:
-            # pass 2 only consumes sign(v); rows where the masked pass-1
-            # sign differs from raw sign(v) have their message zeroed in
-            # pass 2 anyway, so stashing the masked sign is equivalent —
-            # and an int8 stash carries 4x less VMEM traffic than v
-            vstash[e] = neg.astype(jnp.int8)
-        return a, neg, pneg
-
-    # entry 0 seeds the running mins (data-tied initial state: Mosaic
-    # cannot relayout a comparison against replicated constants)
-    a0, neg0, pxor = entry_a_neg(0)
-    m1 = a0
-    m2 = big + 0 * a0
-    am = (0 * a0).astype(jnp.int32)
-    par = neg0
-    for e in range(1, Dmax):
-        a, neg, pneg = entry_a_neg(e)
-        isnew = a < m1
-        m2 = jnp.where(isnew, m1, jnp.minimum(m2, a))
-        m1 = jnp.where(isnew, a, m1)
-        am = jnp.where(isnew, e, am)
-        par = par ^ neg
-        pxor = pxor ^ pneg
-
-    # unsatisfied checks this layer (rows 360:383 are padding)
-    rowv = jax.lax.broadcasted_iota(jnp.int32, (PAD, B), 0) < 360
-    layer_bad = jnp.sum(jnp.where(rowv, pxor, 0), axis=0,
-                        keepdims=True)                       # [1, B]
-
-    bad_out[:, :] = bad_out[:, :] + layer_bad
-
-    ib = jnp.int32(beta)
-
-    # ---- pass 2: new messages, posterior delta scatter ----------------
-    for e in range(Dmax):
-        g = g_ref[r, e]
-        s = s_ref[r, e]
-        fl = f_ref[r, e]
-        if oriented:
-            old32 = msgs_in[j, e].astype(jnp.int32)
-            neg = ((vstash[e] - old32) < 0).astype(jnp.int32)
-        elif stash8:
-            neg = vstash[e].astype(jnp.int32)
-        else:
-            neg = (vstash[e] < 0).astype(jnp.int32)
-        excl = jnp.where(am == e, m2, m1)
-        # message magnitudes cap at 31 (not 127): the int8 posterior
-        # must hold llr + sum of ~3..7 messages without saturating —
-        # with 127-magnitude messages the delta-form update clips
-        # inconsistently and the decode hits an error floor (see the
-        # numpy study in tests/test_ldpc_pallas.py)
-        mag = jnp.clip(excl - ib, jnp.int32(0), jnp.int32(MSG_CLIP))
-        # sign of product of the OTHER inputs = total parity xor own sign
-        sg = jnp.where((par ^ neg) > 0, jnp.int32(-1), jnp.int32(1))
-        news = sg * mag
-        masked = (fl & F_MASK0) != 0
-        news = jnp.where(masked & row0, jnp.int32(0), news)
-        invalid = (fl & F_VALID) == 0
-        news = jnp.where(invalid, jnp.int32(0), news)
-        old = msgs_in[j, e].astype(jnp.int32)
-        # self-corrected min-sum (the reference's SelfCorrectedUpdate,
-        # xdsopl-ldpc-pabr/algorithms.hh): a message whose sign flipped
-        # since last sweep is erased — the damping that makes low-
-        # precision layered decoding converge (tile-parallel delta
-        # updates saturate the int8 posterior inconsistently otherwise)
-        flip = (old != 0) & ((old ^ news) < 0)
-        news = jnp.where(flip, jnp.int32(0), news)
-        delta = news - old
-        msgs_out[j, e] = news.astype(jnp.int8)
-        base = pl.multiple_of(g * PAD, PAD)
-        if oriented:
-            # oriented write-back: the posterior stays in THIS layer's
-            # orientation (no inverse roll). Stash slots add the delta
-            # to the pass-1 stash; the rz roll-region slots (intra-layer
-            # dups + spilled first-occurrences) re-read the tile at its
-            # current orientation and roll by the static difference
-            # d_ref. Invalid pad slots carry g = DUMMY (a scratch group
-            # row past the real posteriors), so their writes land in
-            # never-read rows — no predication needed.
-            if Dmax - 2 - rz <= e < Dmax - 2:
-                cur0 = post_out[pl.ds(base, PAD), :].astype(jnp.int32)
-                cur = roll360(cur0, d_ref[r, e])
+    def layer(r, bad, it):
+        first_sweep = it == 0
+        ents = []
+        # ---- pass 1: variable-to-check values, running two-min, and the
+        # parity of the posterior signs over the check row (the online
+        # per-layer syndrome: later layers see posteriors already
+        # updated this sweep)
+        m1 = m2 = am = par = pxor = None
+        for e in range(Dmax):
+            word = tab_ref[r, e]
+            g = word & ((1 << _S_SHIFT) - 1)
+            s = (word >> _S_SHIFT) & ((1 << (_F_SHIFT - _S_SHIFT)) - 1)
+            fl = (word >> _F_SHIFT) & 3
+            wave = word >> _W_SHIFT
+            valid = (fl & F_VALID) != 0
+            masked = ((fl & F_MASK0) != 0) & row0
+            src = m - s
+            ok = row_ok & valid
+            # masked lanes address a pad row of their own: interpret mode
+            # stores them (unchanged), and they must not alias a live row
+            idx = jnp.where(ok, g * LANES + jnp.where(src >= 0, src,
+                                                      src + LANES),
+                            n_post + m)
+            rolled = plt.load(post_ref.at[0, idx], mask=ok,
+                              other=0).astype(jnp.int32)
+            midx = jnp.where(ok, (r * Dmax + e) * LANES + m, n_msg + m)
+            old = plt.load(msg_ref.at[0, midx], mask=ok & ~first_sweep,
+                           other=0).astype(jnp.int32)
+            v = rolled - old
+            kill = masked | ~valid
+            a = jnp.where(kill, big, jnp.abs(v))
+            neg = jnp.where(kill, 0, (v < 0).astype(jnp.int32))
+            pneg = jnp.where(kill, 0, (rolled < 0).astype(jnp.int32))
+            if e == 0:
+                m1, m2, am = a, big + 0 * a, 0 * a
+                par, pxor = neg, pneg
             else:
-                cur = vstash[e]
-            upd = jnp.clip(cur + delta, jnp.int32(-127), jnp.int32(127)
-                           ).astype(jnp.int8)
-            post_out[pl.ds(base, PAD), :] = upd
-        else:
-            # inverse roll and saturating posterior update (the padding
-            # rows of post accumulate don't-care values, clipped like
-            # the rest)
-            rdelta = roll360(delta, jax.lax.rem(LANES - s, LANES))
-            cur = post_out[pl.ds(base, PAD), :].astype(jnp.int32)
-            upd = jnp.clip(cur + rdelta, jnp.int32(-127), jnp.int32(127))
-            post_out[pl.ds(base, PAD), :] = upd.astype(jnp.int8)
+                isnew = a < m1
+                m2 = jnp.where(isnew, m1, jnp.minimum(m2, a))
+                m1 = jnp.where(isnew, a, m1)
+                am = jnp.where(isnew, e, am)
+                par = par ^ neg
+                pxor = pxor ^ pneg
+            ents.append((idx, ok, wave, kill, midx, rolled, old, neg))
+        bad = bad + jnp.sum(jnp.where(row_ok, pxor, 0))
+        barrier()
 
+        # ---- pass 2: new messages and the saturating posterior update
+        deltas = []
+        for e, (idx, ok, wave, kill, midx, rolled, old, neg) in \
+                enumerate(ents):
+            excl = jnp.where(am == e, m2, m1)
+            # message magnitudes cap at MSG_CLIP (not 127): the int8
+            # posterior must hold llr + the sum of ~3..7 messages without
+            # saturating, or the delta-form update clips inconsistently
+            # and the decode hits an error floor (tests/test_ldpc_pallas)
+            mag = jnp.clip(excl - beta, 0, MSG_CLIP)
+            # sign of the product of the OTHER inputs
+            news = jnp.where((par ^ neg) > 0, -mag, mag)
+            news = jnp.where(kill, 0, news)
+            # self-corrected min-sum (the reference's SelfCorrectedUpdate,
+            # xdsopl-ldpc-pabr/algorithms.hh): a message whose sign
+            # flipped since the last sweep is erased
+            news = jnp.where((old != 0) & ((old ^ news) < 0), 0, news)
+            delta = news - old
+            plt.store(msg_ref.at[0, midx], news.astype(jnp.int8), mask=ok)
+            plt.store(post_ref.at[0, idx],
+                      jnp.clip(rolled + delta, -127, 127).astype(jnp.int8),
+                      mask=ok & (wave == 0))
+            deltas.append(delta)
+        for w in range(1, waves):
+            # repeated groups: re-read what the earlier wave wrote
+            barrier()
+            for (idx, ok, wave, *_), delta in zip(ents, deltas):
+                wok = ok & (wave == w)
+                cur = plt.load(post_ref.at[0, idx], mask=wok,
+                               other=0).astype(jnp.int32)
+                plt.store(post_ref.at[0, idx],
+                          jnp.clip(cur + delta, -127, 127).astype(jnp.int8),
+                          mask=wok)
+        barrier()
+        return bad
 
-def decode_qc_pallas(llr_i8: jax.Array, table: str, n_iters: int = 16,
-                     beta: int = 1, interpret: bool = False,
-                     early_exit: bool = True, syndrome: str = "kernel",
-                     lpg: int | None = None, roll_impl: str = "prim",
-                     stash8: bool = False, schedule: str | None = None):
-    """Thin dispatcher: resolves schedule=None from the module SCHEDULE
-    flag BEFORE the jit boundary (a None static arg would pin the trace
-    to whatever the flag was first)."""
-    return _decode_qc_pallas(
-        llr_i8, table, n_iters=n_iters, beta=beta, interpret=interpret,
-        early_exit=early_exit, syndrome=syndrome, lpg=lpg,
-        roll_impl=roll_impl, stash8=stash8,
-        schedule=schedule if schedule is not None else SCHEDULE)
+    def sweep_cond(carry):
+        it, trials, bad = carry
+        go = it < n_iters
+        if early_exit:
+            go = go & (bad != 0)
+        return go
+
+    def sweep(carry):
+        it, trials, _ = carry
+        bad = jax.lax.fori_loop(0, q, lambda r, b: layer(r, b, it),
+                                jnp.int32(0))
+        trials = jnp.where((trials == n_iters) & (bad == 0), it + 1, trials)
+        return it + 1, trials, bad
+
+    # bad = 1 means "unknown" until the first sweep
+    _, trials, bad = jax.lax.while_loop(
+        sweep_cond, sweep, (jnp.int32(0), jnp.int32(n_iters), jnp.int32(1)))
+    two = jax.lax.broadcasted_iota(jnp.int32, (2,), 0)
+    res_ref[0, :] = jnp.where(two == 0, bad, trials)
 
 
 @functools.partial(jax.jit, static_argnames=("table", "n_iters", "beta",
-                                             "interpret", "early_exit",
-                                             "syndrome", "lpg",
-                                             "roll_impl", "stash8",
-                                             "schedule"))
-def _decode_qc_pallas(llr_i8: jax.Array, table: str, n_iters: int = 16,
-                      beta: int = 1, interpret: bool = False,
-                      early_exit: bool = True, syndrome: str = "kernel",
-                      lpg: int | None = None, roll_impl: str = "prim",
-                      stash8: bool = False, schedule: str = "natural"):
-    """Layered OMS decode of B=128 frames in one Pallas kernel.
+                                             "interpret", "early_exit"))
+def decode_qc_pallas(llr_i8: jax.Array, table: str, n_iters: int = 16,
+                     beta: int = 1, interpret: bool = False,
+                     early_exit: bool = True):
+    """Layered OMS decode of any number of frames, one program each.
 
-    llr_i8: [128, N] int8 LLRs (positive = bit 0; demap scale, ~const_sca).
-    Returns (hard [128, N] uint8, n_bad_checks [128] int32,
-    trials [128] int32 — the sweep at which each frame's online
-    syndrome first read zero, n_iters if never, mirroring the
-    reference's trials-used-or-max metric, bbframe_ldpc.cpp:123-139).
+    llr_i8: [B, N] int8 LLRs (positive = bit 0; quantize_llrs scale).
+    Returns (hard [B, N] uint8, n_bad_checks [B] int32 — the online
+    syndrome count of the frame's last sweep, trials [B] int32 — the
+    sweep at which that count first read zero, n_iters if never,
+    mirroring the reference's trials-used-or-max metric,
+    bbframe_ldpc.cpp:123-139).
 
-    early_exit=True runs sweeps in a while_loop that stops once every
-    frame's online syndrome is clean (the whole batch gates on its
-    slowest frame, like the reference's while bad() && trials--); at
-    the 5 dB operating point that is ~3 of 12 sweeps.
-
-    syndrome="kernel" reports the LAST sweep's in-kernel online count
-    as n_bad_checks — the same statistic the early-exit gate and the
-    reference's `bad()` loop condition use, at zero extra cost.
-    "xla" recomputes the exact final syndrome from the posteriors
-    (layer-by-layer rolls in XLA) — it can disagree with the online
-    count only when posterior signs flip after their layer was visited
-    within the final sweep; downstream the on-device BCH syndrome gates
-    actual frame acceptance either way.
+    early_exit=True stops each frame at its first clean sweep;
+    early_exit=False runs all n_iters sweeps (bit-exact comparisons).
+    interpret=True runs the kernel in Pallas interpret mode (CPU tests).
     """
-    oriented = schedule == "oriented"
-    if oriented:
-        assert not stash8, "oriented schedule stashes rolled posteriors"
-        kt = kernel_tables_oriented(table)
-    else:
-        kt = kernel_tables(table)
+    kt = kernel_tables(table)
     G, q, Dmax = kt["G"], kt["q"], kt["Dmax"]
-    rz = kt.get("rz", 0)
-    # +1 scratch group row in oriented mode (invalid pad slots' writes)
-    n_rows = (G + q + (1 if oriented else 0)) * PAD
-    assert llr_i8.shape == (B, kt["N"]), llr_i8.shape
-    # layers per grid step: fewer grid steps = less per-step DMA/latency
-    # overhead (the per-sweep time was grid-bound, PROFILE_r4.md); the
-    # lpg layers still run serially inside the body, so the layered
-    # schedule is unchanged
-    if lpg is None:
-        lpg = next(k for k in (3, 2, 1) if q % k == 0)
-    assert q % lpg == 0, (q, lpg)
-
-    # POST layout via reshape+transpose (gather-free, see llr_to_post),
-    # rows padded 360 -> PAD for tile alignment
-    p3 = llr_to_post(llr_i8, G, q)                     # [G+q, 360, B]
-    post = jnp.pad(p3, ((0, 0), (0, PAD - LANES), (0, 0))
-                   ).reshape((G + q) * PAD, B)
-    if oriented:                     # scratch group row (see DUMMY)
-        post = jnp.concatenate(
-            [post, jnp.zeros((PAD, B), jnp.int8)], axis=0)
-    msgs = jnp.zeros((q, Dmax, PAD, B), jnp.int8)
-
-    kern = functools.partial(_kernel, Dmax=Dmax, beta=beta, n_rows=n_rows,
-                             lpg=lpg, roll_impl=roll_impl, stash8=stash8,
-                             oriented=oriented, rz=rz)
-    sweep = pl.pallas_call(
+    B, N = llr_i8.shape
+    assert N == kt["N"], (N, kt["N"])
+    n_msg = q * Dmax * LANES
+    # each frame's rows end in a pad row of VEC that only masked lanes
+    # address (see _kernel)
+    frames = jnp.pad(llr_to_frames(llr_i8, G, q), ((0, 0), (0, VEC)))
+    # under shard_map the outputs vary over the same mesh axes as the input
+    vma = jax.typeof(frames).vma
+    kern = functools.partial(
+        _kernel, q=q, Dmax=Dmax, waves=kt["waves"], n_post=N, n_msg=n_msg,
+        n_iters=n_iters, beta=beta, early_exit=early_exit,
+        interpret=interpret)
+    post, _, res = pl.pallas_call(
         kern,
-        grid_spec=pltpu.PrefetchScalarGridSpec(
-            num_scalar_prefetch=4,
-            grid=(q // lpg,),
-            in_specs=[
-                pl.BlockSpec(memory_space=pl.ANY),        # post, stays HBM
-                pl.BlockSpec((lpg, Dmax, PAD, B),
-                             lambda r, *_: (r, 0, 0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec((n_rows, B), lambda r, *_: (0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((lpg, Dmax, PAD, B),
-                             lambda r, *_: (r, 0, 0, 0),
-                             memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, B), lambda r, *_: (0, 0),
-                             memory_space=pltpu.VMEM),
-            ],
-            scratch_shapes=[
-                pltpu.VMEM((Dmax, PAD, B),
-                           jnp.int8 if stash8 else jnp.int32),  # vstash
-                # roll_buf is only touched by the "buffer" roll path;
-                # under the default "prim" (pltpu.roll) allocate a
-                # 1-row dummy instead of ~380 KB of dead VMEM
-                pltpu.VMEM(((2 * LANES + PAD - LANES)
-                            if roll_impl == "buffer" else 1, B),
-                           jnp.int32),                       # roll_buf
-            ],
-        ),
-        out_shape=[
-            jax.ShapeDtypeStruct((n_rows, B), jnp.int8),
-            jax.ShapeDtypeStruct((q, Dmax, PAD, B), jnp.int8),
-            jax.ShapeDtypeStruct((1, B), jnp.int32),
-        ],
+        grid=(B,),
+        in_specs=[pl.BlockSpec((q, Dmax), lambda i: (0, 0)),
+                  pl.BlockSpec((1, N + VEC), lambda i: (i, 0))],
+        out_specs=[pl.BlockSpec((1, N + VEC), lambda i: (i, 0)),
+                   pl.BlockSpec((1, n_msg + VEC), lambda i: (i, 0)),
+                   pl.BlockSpec((1, 2), lambda i: (i, 0))],
+        out_shape=[jax.ShapeDtypeStruct((B, N + VEC), jnp.int8, vma=vma),
+                   jax.ShapeDtypeStruct((B, n_msg + VEC), jnp.int8, vma=vma),
+                   jax.ShapeDtypeStruct((B, 2), jnp.int32, vma=vma)],
+        backend="triton",
+        compiler_params=plt.CompilerParams(num_warps=NUM_WARPS,
+                                           num_stages=1),
         interpret=interpret,
-    )
-    g_t = jnp.asarray(kt["g_tab"])
-    f_t = jnp.asarray(kt["f_tab"])
-    if oriented:
-        s_first, d_first = jnp.asarray(kt["rs_first"]), jnp.asarray(
-            kt["d_first"])
-        s_steady, d_steady = jnp.asarray(kt["rs_steady"]), jnp.asarray(
-            kt["d_steady"])
-    else:
-        s_first = s_steady = jnp.asarray(kt["s_tab"])
-        d_first = d_steady = jnp.zeros_like(s_first)
-
-    trials0 = jnp.full((B,), n_iters, jnp.int32)
-    done0 = jnp.zeros((B,), bool)
-    bad0 = jnp.full((B,), 1, jnp.int32)   # "unknown" until the first sweep
-
-    def make_body(s_t, d_t):
-        def body(carry):
-            post, msgs, trials, done, lastbad, it = carry
-            post, msgs, bad = sweep(g_t, s_t, f_t, d_t, post, msgs)
-            now_ok = bad[0] == 0
-            trials = jnp.where(~done & now_ok, it + 1, trials)
-            done = done | now_ok
-            return post, msgs, trials, done, bad[0], it + 1
-        return body
-
-    body = make_body(s_steady, d_steady)
-    body_first = make_body(s_first, d_first)
-
-    # sweep 1 runs unrolled (oriented mode: it reads from the natural
-    # orientation and leaves every group at the schedule's fixed-point
-    # orientation; from sweep 2 on the steady tables apply)
-    carry = body_first((post, msgs, trials0, done0, bad0, jnp.int32(0)))
-
-    if early_exit:
-        def cond(carry):
-            *_, done, lastbad, it = carry
-            # sum-reduction, not jnp.all: axis reductions of other
-            # kinds inside while_loop have SIGSEGV'd this target's
-            # compiler before (CLAUDE.md: jnp.prod)
-            n_open = jnp.sum(1 - done.astype(jnp.int32))
-            return (it < n_iters) & (n_open > 0)
-        post, msgs, trials, done, lastbad, _ = jax.lax.while_loop(
-            cond, body, carry)
-    elif n_iters > 1:
-        def one(carry, _):
-            return body(carry), 0
-        (post, msgs, trials, done, lastbad, _), _ = jax.lax.scan(
-            one, carry, None, length=n_iters - 1)
-    else:
-        post, msgs, trials, done, lastbad, _ = carry
-    del msgs
-
-    if oriented:
-        # static per-group un-orientation (one log-depth masked-roll
-        # barrel over the whole posterior, ~9 passes of int8 — NOT a
-        # per-group python loop of 100+ small rolls)
-        u = (LANES - kt["o_final"][:G + q]) % LANES
-        x = post[:(G + q) * PAD].reshape(G + q, PAD, B)[:, :LANES, :]
-        for b in range(int(np.max(u)).bit_length()):
-            kk = 1 << b
-            mask = jnp.asarray(((u >> b) & 1) != 0)[:, None, None]
-            x = jnp.where(mask, jnp.roll(x, kk, axis=1), x)
-        p3 = x
-    else:
-        p3 = post.reshape(G + q, PAD, B)[:, :LANES, :]
-    hard = post_to_hard(p3, G, q)                      # [B, N]
-
-    if syndrome == "kernel":
-        # the FINAL sweep's online count, unconditionally: it is 0 for
-        # frames that converged and stayed clean, and faithfully nonzero
-        # for frames whose posteriors were pushed off the codeword by
-        # later sweeps run for the rest of the batch (forcing 0 for
-        # ever-converged frames would hide those — ADVICE r2)
-        bad = lastbad
-        return hard, bad, trials
-
-    # syndrome count per frame (exact recompute in XLA, as ldpc_qc does)
-    t = qc_tables(table)
-    layers = t["layers"]
-    postf = p3.astype(jnp.int32)
-    col0 = (jax.lax.broadcasted_iota(jnp.int32, (LANES, B), 0) == 0)
-    bad = jnp.zeros(B, jnp.int32)
-    for r in range(q):
-        acc = jnp.zeros((LANES, B), jnp.int32)
-        for (g, s) in layers[r]:
-            acc += (jnp.roll(postf[g], s, axis=0) < 0).astype(jnp.int32)
-        acc += (postf[G + r] < 0).astype(jnp.int32)
-        prev = jnp.roll(postf[G + q - 1], 1, axis=0) if r == 0 \
-            else postf[G + r - 1]
-        prevneg = (prev < 0).astype(jnp.int32)
-        if r == 0:
-            prevneg = jnp.where(col0, 0, prevneg)
-        acc += prevneg
-        bad += jnp.sum(acc % 2, axis=0)
-    return hard, bad, trials
+        name="ldpc_layered_oms",
+    )(jnp.asarray(kt["tab"]), frames)
+    return frames_to_hard(post[:, :N], G, q), res[:, 0], res[:, 1]

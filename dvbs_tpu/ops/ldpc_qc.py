@@ -1,20 +1,20 @@
-"""Quasi-cyclic layered LDPC decoder (pure-XLA, roll-based; VMEM-resident).
+"""Quasi-cyclic layered LDPC decoder (pure XLA, roll-based).
 
 The DVB-S2 IRA codes are quasi-cyclic under the m-major reordering: with
 q = (N-K)/360, parity address a = r + q*c maps to layer r and column c,
 and table entry x of info group g connects check (r=x mod q, c) to info
 bit (g, (c - x//q) mod 360) — a cyclic shift of the group's 360-vector.
-All graph access therefore becomes static-shift rolls of [360, B] tiles
-(pltpu.roll), no gathers at all:
+All graph access therefore becomes static-shift rolls of [360, B] tiles,
+no gathers at all:
 
   posterior tiles:  POST [G+q, 360, B]  (info groups then parity layers)
   layer r checks:   entries e: roll(POST[g_e], s_e), plus parity tiles
                     POST[G+r] and POST[G+r-1] (r=0: roll(POST[G+q-1], 1)
                     with the (c=0) wrap edge masked out)
 
-One layered sweep = python-static loop over layers/entries inside the
-kernel; iterations = fori_loop. Everything lives in VMEM for the whole
-decode — message traffic never touches HBM.
+One layered sweep = python-static loop over layers/entries; iterations
+= lax.scan. This is the CPU route of ops/routes.py; the GPU route is the
+int8 per-frame kernel of ops/ldpc_pallas.py.
 
 Offset-min-sum, same beta=2 scale as the flooding decoder (ops/ldpc.py),
 but layered: roughly half the iterations for the same BER.
@@ -67,10 +67,8 @@ def llr_to_post(llr: jax.Array, G: int, q: int) -> jax.Array:
 
     The QC permutation is structured: info bit i -> (i//360, i%360)
     (a plain reshape) and parity bit a = r + q*c -> (G+r, c) (a [360, q]
-    -> [q, 360] transpose). Expressing it this way instead of
-    `.at[perm].set` matters on TPU, where a 64800-row scatter/gather
-    serializes (CLAUDE.md) while reshape+transpose are free/cheap
-    relayouts.
+    -> [q, 360] transpose), a reshape and a transpose instead of a
+    64800-row `.at[perm].set` scatter.
     """
     B = llr.shape[0]
     K = G * LANES
@@ -112,8 +110,8 @@ def decode_qc(llr: jax.Array, table: str, n_iters: int = 16,
               beta: float = 2.0, track_trials: bool = True):
     """QC layered offset-min-sum decode in pure XLA (rolls, no gathers).
 
-    Runs a fixed number of layered sweeps (early exit would break the
-    all-VMEM schedule, see note below); with track_trials the syndrome is
+    Runs a fixed number of layered sweeps (no early exit); with
+    track_trials the syndrome is
     evaluated after every sweep and the per-frame sweep count at which the
     checks first cleared is reported — the same per-frame trial count the
     reference's bad()-gated loop reports (layered_decoder.hh:121-133,
@@ -200,13 +198,8 @@ def decode_qc(llr: jax.Array, table: str, n_iters: int = 16,
     msgs0 = tuple(jnp.zeros((len(layers[r]) + 2, LANES, B), jnp.bfloat16) + zb
                   for r in range(q))
 
-    # NOTE: fixed iteration count on purpose. Wrapping the sweep scan in a
-    # lax.while_loop for syndrome-gated early exit costs 100x — the outer
-    # while breaks XLA's all-VMEM schedule for the loop state (same effect
-    # as embedding the decoder in a larger program; see CLAUDE.md). At
-    # ~60us/sweep the fixed schedule is already negligible in the block
-    # budget; callers wanting early exit should decode in two passes
-    # (short first, rerun unconverged lanes longer).
+    # fixed iteration count: callers wanting early exit decode in two
+    # passes (short first, rerun unconverged lanes longer)
     if track_trials:
         def step(carry, i):
             state, first_ok = carry

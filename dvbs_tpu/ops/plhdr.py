@@ -33,7 +33,10 @@ def detect_pls(headers: jax.Array) -> tuple[jax.Array, jax.Array]:
     """
     pls = headers[:, 26:90]                           # [F, 64]
     M = jnp.asarray(_pls_sym_matrix())                # [128, 64]
-    corr = jnp.real(pls @ jnp.conj(M).T)              # [F, 128]
+    # HIGHEST: the argmax and the confidence threshold decide on these
+    # sums (TF32 would round them to ~3 decimal digits)
+    corr = jnp.real(jnp.matmul(pls, jnp.conj(M).T,
+                               precision=jax.lax.Precision.HIGHEST))
     idx = jnp.argmax(corr, axis=1).astype(jnp.int32)
     conf = jnp.take_along_axis(corr, idx[:, None], axis=1)[:, 0] / 64.0
     return idx, conf

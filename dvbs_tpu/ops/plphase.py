@@ -180,8 +180,7 @@ def _vv_group_phases(payload: jax.Array, theta0: jax.Array, group: int):
     z4 = jnp.sum(z ** 4, axis=2)                   # QPSK**4 removes data
     # QPSK^4 lands at angle 4*theta + pi (points at odd multiples of pi/4)
     raw = (jnp.angle(z4) - jnp.pi) / 4.0           # mod pi/2 ambiguity
-    # unwrap = prefix sum, not a scan (a 360-step lax.scan cost ~3 ms
-    # per bank block on chip, PROFILE_r4.md): anchor group 0 at the
+    # unwrap = prefix sum, not a 360-step lax.scan: anchor group 0 at the
     # multiple of pi/2 nearest theta0, then accumulate the mod-(pi/2)
     # wrapped group-to-group steps — step-wise identical to the
     # sequential "round to previous" unwrap because the accumulated
@@ -201,8 +200,7 @@ def _interp_phases(phases: jax.Array, group: int, P: int) -> jax.Array:
     centers at (i+0.5)*group) onto the symbol grid [F, P], edge-clamped.
 
     Built by reshape/broadcast only — the jnp.interp this replaces is a
-    binary-search gather per symbol, which serializes on TPU
-    (PROFILE_r4.md lesson bank)."""
+    binary-search gather per symbol."""
     F, G = phases.shape
     h = group // 2
     d = phases[:, 1:] - phases[:, :-1]                      # [F, G-1]
@@ -320,7 +318,7 @@ def extract_payload(frames: jax.Array, cfg: modcod.ModcodConfig
                     ) -> jax.Array:
     """Pilots-on payload extraction [..., L] -> [..., P] as static
     slices + concat (the pilot grid is uniform, so the `[:, payload_idx]`
-    fancy-index this replaces — a serializing TPU gather — is just the
+    fancy-index this replaces — a gather — is just the
     1440-symbol stretches between pilot blocks). Equality with the
     index form is asserted in tests/test_spec.py."""
     ps = pilot_starts(cfg)
@@ -389,7 +387,7 @@ def pilot_anchor_phases(frames: jax.Array, cfg: modcod.ModcodConfig,
     # residual (worst mid-estimate CFOs); a flat tail accrues that over
     # the ~1.5k unanchored symbols after the last pilot to >0.5 rad —
     # past the 32APSK decision regions (the round-4 bench 32APSK gate
-    # failure, VERDICT r4 #1; anatomy in tools/debug_32apsk_phase.py).
+    # failure).
     # The full-span anchor slope measures the residual at ~3e-6
     # rad/symbol noise (14.5 dB), so extrapolation is ~free. The
     # reference's per-symbol PLL free-runs its frequency state through

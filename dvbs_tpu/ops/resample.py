@@ -4,11 +4,11 @@ The reference gets resampling for free from the SDR++ host: the plugin
 pins its VFO to 2x symbolrate (main.cpp:129) and the host's channelizer
 delivers exactly 2 samples/symbol, with runtime symbolrate/samplerate
 coupling (main.cpp:217-243, module_dvbs2_demod.cpp:170-214). This module
-is the TPU-native replacement for that host machinery:
+is the device replacement for that host machinery:
 
 - `rational_resample`: L/M polyphase resampler as L x T static
-  strided-slice multiply-adds (gather-free; single-channel convolution
-  lowers badly on TPU, and a reshape puts the phase axis back in time
+  strided-slice multiply-adds (gather-free, no single-channel
+  convolution; a reshape puts the phase axis back in time
   order). The exact ratio 2*symbolrate/samplerate is approximated by a
   small fraction (denominator <= 64); the residual (<~0.1%) is ordinary
   sample-clock offset, absorbed by the block timing recovery

@@ -1,6 +1,6 @@
 """Batched Viterbi decoder for the DVB-S K=7 rate-1/2 code (JAX).
 
-TPU-native replacement for the reference's volk `spiral` ACS kernel +
+Device replacement for the reference's volk `spiral` ACS kernel +
 chainback (/root/reference/src/demod/dvbs/viterbi/cc_decoder.cpp:56-92,
 295-302): instead of streaming 8192-bit blocks with start-state chaining,
 the stream is cut into overlapping segments decoded in parallel — the
@@ -96,7 +96,7 @@ def decode_segments(llrs: jax.Array, k: int = 4) -> jax.Array:
     Everything is gather-free: candidate expansion is a reshape +
     broadcast (predecessor = ((ns & low) << k) | j), and traceback
     carries the state as a one-hot vector updated with masked reductions
-    (TPU gathers serialize; one-hot select vectorizes).
+    (one-hot selects instead of gathers).
 
     T is zero-padded (erasures) to a multiple of k: appended zero-LLR
     steps leave every path metric unchanged, and their ACS decisions
@@ -118,7 +118,8 @@ def decode_segments(llrs: jax.Array, k: int = 4) -> jax.Array:
 
     def acs(pm, r):
         # r: [B, 2k]; pm: [B, 64] (layout ns = lo * 2^k + j-of-next...
-        # plain integer order). bm via one small matmul on the MXU.
+        # plain integer order). bm via one small matmul (HIGHEST: the
+        # compare-selects decide on these sums; no TF32 rounding).
         bm = jax.lax.dot_general(
             r, sign, (((1,), (0,)), ((), ())),
             precision=jax.lax.Precision.HIGHEST)        # [B, 64R]
@@ -142,7 +143,9 @@ def decode_segments(llrs: jax.Array, k: int = 4) -> jax.Array:
         # oh: one-hot state [B, 64] = [B, hi, lo]; dec_t: [B, 64] uint8
         ohr = oh.reshape(B, R, LO)
         # k input bits of this super-step live in the state's hi bits
-        bits = jnp.dot(jnp.sum(ohr, axis=2), bits_hi)   # [B, k] earliest-first
+        # exact at any precision: one-hot times 0/1 bits
+        bits = jnp.dot(jnp.sum(ohr, axis=2), bits_hi,
+                       precision=jax.lax.Precision.DEFAULT)  # [B, k]
         dsel = (dec_t.reshape(B, R, LO, 1) == jr).astype(oh.dtype)
         # pred one-hot over (lo, j): sum_hi oh[b,hi,lo] * [dec==j]
         poh = jnp.sum(ohr[:, :, :, None] * dsel, axis=1)  # [B, LO, R]

@@ -3,8 +3,8 @@
 Two complementary surfaces:
 
 - `device_trace(logdir)`: context manager around jax.profiler.trace —
-  captures an XLA/TPU trace viewable in TensorBoard/Perfetto, the
-  TPU-native replacement for the reference's (absent) profiler hooks.
+  captures an XLA device trace viewable in TensorBoard/Perfetto, the
+  replacement for the reference's (absent) profiler hooks.
 - `PipelineStats`: lightweight host-side counters the streaming drivers
   update per block — samples in, frames seen/ok, TS bytes out, LDPC
   trial histogram, and wall-time per pipeline stage (dispatch / fetch /

@@ -10,8 +10,8 @@ of transcribing the twelve polynomial tables (bbframe_bch.cpp:250-364); a
 unit test cross-checks the products against the standard's values.
 
 Everything here is numpy host code: it serves as the golden TX encoder and
-the rare-path error corrector; the hot RX syndrome computation runs on TPU
-as a GF(2) matmul (see dvbs_tpu/ops/bch.py).
+the rare-path error corrector; the hot RX syndrome computation runs on
+device as a GF(2) matmul (see dvbs_tpu/ops/bch.py).
 """
 from __future__ import annotations
 

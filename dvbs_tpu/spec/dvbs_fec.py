@@ -9,7 +9,7 @@
   (/root/reference/src/demod/dvbs/dvbs_interleaving.h:58-70).
 
 All numpy; depuncturing emits float LLR pairs with 0 = erasure for the
-TPU Viterbi decoder.
+device Viterbi decoder.
 """
 from __future__ import annotations
 

@@ -80,8 +80,8 @@ def deinterleave_llrs(stream: np.ndarray, kind: str, framesize: str,
 
 def deinterleave_device(llrs_sym, kind: str, framesize: str, rate: str):
     """RX deinterleave for the device path: [..., P, m] per-symbol LLRs
-    -> [..., nldpc] codeword order, as reshape+slice+concat (TPU gathers
-    serialize; the column twist is structurally a transpose).
+    -> [..., nldpc] codeword order, as reshape+slice+concat instead of a
+    gather (the column twist is structurally a transpose).
 
     codeword[offs[k-1] + j] = stream[m*j + (m-k)] = llrs_sym[..., j, m-k]
     (deinterleave_perm above), so column k's chunk is one strided slice;

@@ -1,7 +1,7 @@
 """DVB-S2 golden modulator (numpy, host): TS bytes -> PLFRAME symbols.
 
 Implements the full EN 302 307-1 TX chain as the loopback oracle for the
-TPU receiver:
+device receiver:
 
   TS packets -> mode adaptation (CRC-8 sync replacement, BBHEADER)
   -> BB scrambling -> BCH encode -> LDPC encode -> bit interleave

@@ -3,7 +3,7 @@
 // This file is part of the *interop test harness*, not the framework: it
 // compiles the reference decoder/encoder components at /root/reference
 // (LDPC, BCH, scramblers, deinterleavers, CC/RS codecs, TS deframer,
-// BBFrame TS/GSE parser) into one shared library so the TPU framework's
+// BBFrame TS/GSE parser) into one shared library so this framework's
 // own spec/ops implementations can be cross-validated bit-for-bit against
 // the real thing, and so the reference's throughput can be measured
 // headless as the performance baseline (BASELINE.md).

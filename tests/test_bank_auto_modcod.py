@@ -50,7 +50,7 @@ def test_bank_auto_modcod_switch():
     block = bank_block_symbols(C, mc=4, short=SHORT, frames_total=4)
     switches = []
     st = DVBS2BankStream(C, mc=4, short=SHORT, block_symbols=block,
-                         fec="xla", ingest="f16", vote_frames=8,
+                         ingest="f16", vote_frames=8,
                          on_modcod_switch=lambda cfg: switches.append(
                              (cfg.modcod, cfg.framesize, cfg.pilots)))
     y0, sent0 = _carrier(TX_MC, 131, 700, 0.005 * np.pi, 0.4)
@@ -75,7 +75,7 @@ def test_bank_auto_modcod_switch():
     # checkpoint after the switch restores the switched MODCOD
     blob = st.get_state()
     st2 = DVBS2BankStream(C, mc=4, short=SHORT, block_symbols=block,
-                          fec="xla", ingest="f16", vote_frames=8)
+                          ingest="f16", vote_frames=8)
     st2.set_state(blob)
     assert st2.cfg.pls_code == st.cfg.pls_code
 
@@ -86,7 +86,7 @@ def test_bank_diverging_carrier_no_switch():
     out (mixed bouquets use per-carrier DVBS2Streams)."""
     block = bank_block_symbols(C, mc=4, short=SHORT, frames_total=4)
     st = DVBS2BankStream(C, mc=4, short=SHORT, block_symbols=block,
-                         fec="xla", ingest="f16", vote_frames=6)
+                         ingest="f16", vote_frames=6)
     y0, sent0 = _carrier(4, 171, 700, 0.004 * np.pi, 0.3)
     y1, _ = _carrier(6, 181, 700, -0.007 * np.pi, 0.6)
     n = 5 * 2 * block

@@ -1,6 +1,6 @@
 """DVBS2BankStream: continuous multi-carrier streaming on CPU.
 
-The production driver over the fused carrier bank (VERDICT r3 item 2):
+The production driver over the fused carrier bank:
 cross-block frame-boundary continuity per carrier, pipelined look-ahead
 dispatch, escalation/BCH gating, native parse with mark_gap, and
 checkpointing — asserted byte-exact against each carrier's own TX
@@ -51,7 +51,7 @@ def _contiguous_match(got: bytes, sent: np.ndarray) -> int:
 def stream_run():
     block = bank_block_symbols(C, mc=MC, short=SHORT, frames_total=4)
     st = DVBS2BankStream(C, mc=MC, short=SHORT, block_symbols=block,
-                         fec="xla", ingest="f16")
+                         ingest="f16")
     n_blocks = 7
     need = n_blocks * 2 * block + 4 * block
     y0, sent0 = _carrier(31, 900, 0.006 * np.pi, 0.3)
@@ -92,13 +92,13 @@ def test_bank_stream_checkpoint_resume(stream_run):
 
     def run(split):
         st = DVBS2BankStream(C, mc=MC, short=SHORT, block_symbols=block,
-                             fec="xla", ingest="f16")
+                             ingest="f16")
         out = [bytearray(), bytearray()]
         for c, o in zip(st.feed([y0[:split], y1[:split]]), out):
             o.extend(c)
         blob = st.get_state()
         st2 = DVBS2BankStream(C, mc=MC, short=SHORT, block_symbols=block,
-                              fec="xla", ingest="f16")
+                              ingest="f16")
         st2.set_state(blob)
         for c, o in zip(st2.feed([y0[split:4 * n], y1[split:4 * n]]), out):
             o.extend(c)
@@ -117,7 +117,7 @@ def test_bank_stream_dead_carrier_isolated():
     gaps, while the live carrier stays contiguous."""
     block = bank_block_symbols(C, mc=MC, short=SHORT, frames_total=4)
     st = DVBS2BankStream(C, mc=MC, short=SHORT, block_symbols=block,
-                         fec="xla", ingest="f16")
+                         ingest="f16")
     y0, sent0 = _carrier(91, 500, 0.005 * np.pi, 0.2)
     rng = np.random.default_rng(7)
     n = 5 * 2 * block
@@ -143,7 +143,7 @@ def test_bank_stream_escalation_path():
     retry of the reference (layered_decoder.hh:121-133) at bank scale."""
     block = bank_block_symbols(C, mc=MC, short=SHORT, frames_total=4)
     st = DVBS2BankStream(C, mc=MC, short=SHORT, block_symbols=block,
-                         fec="xla", ingest="f16", n_iters=1,
+                         ingest="f16", n_iters=1,
                          max_ldpc_trials=40)
     y0, sent0 = _carrier(95, 400, 0.004 * np.pi, 0.3, snr=3.8)
     y1, sent1 = _carrier(96, 400, -0.006 * np.pi, 0.6, snr=3.8)

@@ -1,11 +1,11 @@
-"""Bench-envelope regression coverage (VERDICT r4 missing #2 / task 3).
+"""Bench-envelope regression coverage.
 
 Round 4's only red gate lived in a parameter corner no CPU test touched:
 32APSK 3/4 + pilots at the bench operating point (14.5 dB, cfo 0.018pi,
 delay 0.85, cs4 ingest, normal frames).  The failure mechanism was the
 flat-clamped tail of pilot_anchor_phases integrating the block-common
 L&R frequency residual over the ~1.5k unanchored symbols after the last
-pilot (anatomy: tools/debug_32apsk_phase.py).  These tests pin:
+pilot.  These tests pin:
 
 1. the pilot-anchor phase track against a known residual-frequency ramp
    (fails on the pre-fix flat tail by >0.5 rad);
@@ -23,7 +23,7 @@ from dvbs_tpu.ops import frontend, plphase
 
 def test_pilot_anchor_tail_tracks_residual_freq():
     """A residual carrier of 5e-4 rad/symbol (worst block-common L&R
-    miss, tools/debug_32apsk_cpu.py) must be tracked through the WHOLE
+    miss) must be tracked through the WHOLE
     frame, including the unanchored tail after the last pilot block —
     the reference's per-symbol PLL free-runs its frequency state there
     (dvbs2_pll.cpp:34-86)."""
@@ -92,7 +92,8 @@ def test_32apsk_bench_corner_cpu(cfo_pi, delay):
     """32APSK 3/4 + pilots, normal frames, at the bench operating point
     (14.5 dB, cs4 ingest, sco 10 ppm) — single carrier, 2 frames, CPU.
     Pre-fix, the flat-tail phase clamp left ~0.6 rad of error at frame
-    end at cfo 0.018pi and LDPC failed at 12 trials (BENCH_r04 red)."""
+    end at cfo 0.018pi and LDPC failed at 12 trials (the round-4 red
+    bench gate)."""
     import jax.numpy as jnp
     from dvbs_tpu.tx import dvbs2_mod, channel
     from dvbs_tpu.models.dvbs2 import DVBS2Receiver

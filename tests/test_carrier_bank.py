@@ -1,7 +1,7 @@
 """Carrier-bank (single-device multi-carrier) tests on CPU.
 
 The bank is the BASELINE north-star configuration (bench.py runs it at
-8 carriers x 128 frames on the TPU); here a 2-carrier short-frame bank
+8 carriers x 128 frames on the GPU); here a 2-carrier short-frame bank
 with DISTINCT per-carrier signals checks carrier independence, and the
 cs4 packed-4-bit ingest path is validated against cs8.
 """
@@ -48,7 +48,7 @@ def _to_cs8(y: np.ndarray) -> np.ndarray:
 def test_bank_distinct_carriers_cs8(bank_io):
     block, n, sigs = bank_io
     step, example = build_carrier_bank(CARRIERS, mc=MC, short=SHORT,
-                                       block_symbols=block, fec="xla")
+                                       block_symbols=block)
     samples = np.stack([_to_cs8(s) for s in sigs])
     assert samples.shape == example.shape and samples.dtype == example.dtype
     out = {k: np.asarray(v) for k, v in step(samples).items()}
@@ -75,7 +75,7 @@ def test_bank_distinct_carriers_cs8(bank_io):
 def test_bank_cs4_ingest_matches_cs8(bank_io):
     block, n, sigs = bank_io
     step, example = build_carrier_bank(CARRIERS, mc=MC, short=SHORT,
-                                       block_symbols=block, fec="xla",
+                                       block_symbols=block,
                                        ingest="cs4")
     packed = np.stack([frontend.pack_cs4(s) for s in sigs])
     assert packed.shape == example.shape and packed.dtype == example.dtype
@@ -85,16 +85,16 @@ def test_bank_cs4_ingest_matches_cs8(bank_io):
     # identical decoded bytes as the cs8 run (4-bit quantization costs
     # no correctness at 6 dB)
     step8, _ = build_carrier_bank(CARRIERS, mc=MC, short=SHORT,
-                                  block_symbols=block, fec="xla")
+                                  block_symbols=block)
     out8 = {k: np.asarray(v)
             for k, v in step8(np.stack([_to_cs8(s) for s in sigs])).items()}
     assert np.array_equal(out["kbch_bytes"], out8["kbch_bytes"])
 
 
 def test_bank_pallas_fec_full_width():
-    """The bench configuration's fec='pallas' wiring (quantize ->
-    B=128 kernel -> pack_and_check -> real trials), end to end on CPU
-    via interpret mode: 2 carriers x 64 short frames with DISTINCT
+    """The GPU route's wiring (quantize -> per-frame kernel -> BCH
+    syndromes + packing -> real trials), end to end on CPU via
+    interpret mode: 2 carriers x 64 short frames with DISTINCT
     signals and different SNRs (per-frame LLR quantization must keep
     the weak carrier decodable next to a strong one)."""
     block = bank_block_symbols(CARRIERS, mc=MC, short=SHORT,
@@ -115,8 +115,7 @@ def test_bank_pallas_fec_full_width():
         from dvbs_tpu.spec import scrambling
         sents.append(scrambling.bb_scramble_bytes(bb).tobytes())
     step, _ = build_carrier_bank(CARRIERS, mc=MC, short=SHORT,
-                                 block_symbols=block, fec="pallas",
-                                 interpret_pallas=True)
+                                 block_symbols=block, interpret=True)
     samples = np.stack([_to_cs8(s) for s in sigs])
     out = {k: np.asarray(v) for k, v in step(samples).items()}
     assert out["ldpc_ok"].all()
@@ -167,7 +166,7 @@ def test_bank_8psk_pilots():
         from dvbs_tpu.spec import scrambling
         sents.append(scrambling.bb_scramble_bytes(bb).tobytes())
     step, _ = build_carrier_bank(CARRIERS, mc=mc8, short=True, pilots=True,
-                                 block_symbols=block, fec="xla")
+                                 block_symbols=block)
     samples = np.stack([_to_cs8(s) for s in sigs])
     out = {k: np.asarray(v) for k, v in step(samples).items()}
     assert out["ldpc_ok"].all()
@@ -179,13 +178,13 @@ def test_bank_8psk_pilots():
 
 
 def test_bank_pallas_any_carrier_count():
-    """fec="pallas" with a frame total that doesn't hit the kernel's
-    B=128 exactly must lane-pad instead of raising (regression: the CLI
+    """The kernel route with a frame total of 6 (3 carriers x 2 frames):
+    one program per frame, so any count decodes (regression: the CLI
     --carrier path crashed for carrier counts not dividing 128)."""
     block = bank_block_symbols(3, mc=MC, short=SHORT, frames_total=6)
     step, example = build_carrier_bank(3, mc=MC, short=SHORT,
-                                       block_symbols=block, fec="pallas",
-                                       interpret_pallas=True)
+                                       block_symbols=block,
+                                       interpret=True)
     sigs = [_carrier_signal(40 + i, 2 * block, 0.003 * np.pi * (i + 1))
             for i in range(3)]
     out = {k: np.asarray(v)

@@ -1,4 +1,4 @@
-"""Dummy PLFRAME tolerance (beyond-reference hardening, VERDICT r4 #9).
+"""Dummy PLFRAME tolerance (beyond-reference hardening).
 
 Real transponders insert dummy PLFRAMEs (MODCOD 0: PLS-0 header + 36
 slots of scrambled unmodulated carrier) between data frames when the

@@ -54,13 +54,12 @@ def test_e2e_qpsk12_short_impaired():
 
 
 def test_e2e_qpsk12_short_pallas_fec_path():
-    """DVBS2Receiver(fec="pallas"): the stream/CLI route through the
-    int8 B=128 kernel (lane-padded from this block's few frames),
-    interpret mode on CPU. Must produce the same accepted frames as
-    the xla path at the same operating point."""
+    """DVBS2Receiver on the GPU route: the stream/CLI path through the
+    int8 per-frame kernel (this block's few frames), interpret mode on
+    CPU. Must produce the same accepted frames as the xla path at the
+    same operating point."""
     res, expect, cfg = _run_chain(snr_db=6.0, cfo=0.015 * np.pi, phase=0.8,
-                                  delay=0.4, sco_ppm=10.0,
-                                  fec="pallas", interpret_pallas=True,
+                                  delay=0.4, sco_ppm=10.0, interpret=True,
                                   max_ldpc_trials=12)
     assert res.frame_ok.all(), (res.ldpc_trials, res.bch_corrections)
     assert _count_matches(res, expect) >= len(res.bbframes) - 1

@@ -75,7 +75,7 @@ def test_dvbs_e2e_noisy():
 
 # ---------------------------------------------------------------- stream
 # DVBSStream checkpoint/resume + reference metric semantics
-# (VERDICT r2 weak #6/#7: rolling 30-block averages, real frame counts,
+# (rolling 30-block averages, real frame counts,
 # get_state/set_state parity with the S2 driver)
 
 def _stream_signal(n_groups=120, seed=3):

@@ -1,8 +1,8 @@
-"""Equivalence tests for the MXU-matmul formulations of the front-end
-ops (plsync.correlate, frontend.fir_filter, frontend.resample_half_grid)
+"""Equivalence tests for the matmul formulations of the front-end ops
+(plsync.correlate, frontend.fir_filter, frontend.resample_half_grid)
 against brute-force/naive golden implementations — these ops were
-rewritten from shift-and-add / one-hot-select forms for TPU throughput
-and must stay numerically faithful."""
+rewritten from shift-and-add / one-hot-select forms for throughput and
+must stay numerically faithful."""
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -74,7 +74,7 @@ def test_fir_filter_mxu_matches_shift_and_add():
         assert np.abs(fast - old).max() < 0.05
         assert np.sqrt(np.mean(np.abs(fast - old) ** 2)) < 0.02
 
-    # the timing-recovery interpolators also ride the bf16 MXU path
+    # the timing-recovery interpolators also ride the bf16 matmul path
     # (K=24 half-sample kernel feeding Oerder&Meyr, K=47 halfband):
     # same error bound applies on those tap sets
     x = (rng.normal(size=1 << 14) + 1j * rng.normal(size=1 << 14)

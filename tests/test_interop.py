@@ -436,7 +436,7 @@ def test_bbframe_ts_parser_cross_gse_mode():
 
 # ------------------------------------------- end-to-end over RF capture
 def test_e2e_capture_to_identical_ts():
-    """IQ capture (our TX + channel impairments) -> our full TPU RX chain
+    """IQ capture (our TX + channel impairments) -> our full RX chain
     -> descrambled BBFRAMEs -> the *reference* TS parser and ours produce
     byte-identical TS output."""
     from dvbs_tpu.models.dvbs2 import DVBS2Receiver

@@ -1,4 +1,5 @@
-"""Pallas QC-LDPC kernel (ops/ldpc_pallas.py), interpret mode on CPU.
+"""Pallas QC-LDPC kernel (ops/ldpc_pallas.py): interpret mode and the
+Triton lowering, on CPU.
 
 The numpy int-arithmetic golden model here is the design study for the
 kernel's numeric recipe: int8 posteriors in the delta-update tile form
@@ -8,6 +9,7 @@ messages and the decode hits an error floor. The kernel must stay
 bit-exact with this model.
 """
 import numpy as np
+import jax
 import jax.numpy as jnp
 import pytest
 
@@ -80,11 +82,14 @@ def int_golden(llr_i8, table, n_iters, beta=1, msg_clip=ldpc_pallas.MSG_CLIP,
     return (from_qc_layout(post, table) < 0).astype(np.uint8)
 
 
+FRAMES = 16         # frames per noisy batch (any count works)
+
+
 @pytest.fixture(scope="module")
 def noisy_case():
     code = ldpc_spec.get_code("C4")
     rng = np.random.default_rng(0)
-    m = rng.integers(0, 2, (ldpc_pallas.B, code.K)).astype(np.uint8)
+    m = rng.integers(0, 2, (FRAMES, code.K)).astype(np.uint8)
     cw = code.encode(m)
     x = 1.0 - 2.0 * cw.astype(np.float32)
     sigma = np.sqrt(10 ** (-3.0 / 10))
@@ -113,12 +118,28 @@ def test_kernel_matches_int_golden_other_tables(table):
     the arithmetic, not convergence."""
     t = qc_tables(table)
     rng = np.random.default_rng(1)
-    llr = rng.integers(-25, 26, (ldpc_pallas.B, t["N"])).astype(np.int8)
+    llr = rng.integers(-25, 26, (4, t["N"])).astype(np.int8)
     hard, _, _ = ldpc_pallas.decode_qc_pallas(
         jnp.asarray(llr), table, n_iters=1, interpret=True,
         early_exit=False)
     hg = int_golden(llr, table, n_iters=1)
     np.testing.assert_array_equal(np.asarray(hard), hg)
+
+
+@pytest.mark.parametrize("table", ["B9", "C5"])
+def test_kernel_repeated_groups_bit_exact(table):
+    """Tables whose layers visit one group three or four times: the
+    later waves re-read the group after the earlier writes, so the
+    deltas accumulate in schedule order exactly as in the golden."""
+    assert ldpc_pallas.kernel_tables(table)["waves"] >= 3
+    t = qc_tables(table)
+    rng = np.random.default_rng(2)
+    llr = rng.integers(-40, 41, (2, t["N"])).astype(np.int8)
+    hard, _, _ = ldpc_pallas.decode_qc_pallas(
+        jnp.asarray(llr), table, n_iters=2, interpret=True,
+        early_exit=False)
+    np.testing.assert_array_equal(np.asarray(hard),
+                                  int_golden(llr, table, n_iters=2))
 
 
 def test_kernel_converges_at_3db(noisy_case):
@@ -134,7 +155,7 @@ def test_kernel_converges_at_3db(noisy_case):
 
 
 def test_kernel_early_exit_matches_full_run(noisy_case):
-    """Early exit stops once the online syndrome is clean batch-wide;
+    """Early exit stops each frame once its online syndrome is clean;
     the hard output must match the fixed-sweep run's FEC result (both
     fully converged)."""
     llr, cw = noisy_case
@@ -149,36 +170,26 @@ def test_kernel_early_exit_matches_full_run(noisy_case):
 
 
 def test_online_syndrome_agrees_with_exact_at_operating_point(noisy_case):
-    """syndrome="kernel" (the zero-cost in-sweep count the early-exit
-    gate uses, and the default return) vs syndrome="xla" (exact
-    recompute from the final posteriors):
+    """The in-kernel online count (what the early exit gates on and
+    what n_bad_checks reports) vs the exact syndrome of the final hard
+    bits (spec check_syndrome):
 
-    - with the budget >= convergence (the operating point: early exit
-      runs until the whole batch is clean) the two are IDENTICAL;
+    - with the budget >= convergence the two are IDENTICAL (zero);
     - under-budget, the online count may only be CONSERVATIVE — it can
       flag a frame that actually converged during the final sweep
       (its layers saw pre-update posteriors; escalation retries it),
       but must never claim a dirty frame clean."""
     llr, cw = noisy_case
-    _, bk, tk = ldpc_pallas.decode_qc_pallas(
-        jnp.asarray(llr), "C4", n_iters=12, interpret=True,
-        syndrome="kernel")
-    _, bx, tx = ldpc_pallas.decode_qc_pallas(
-        jnp.asarray(llr), "C4", n_iters=12, interpret=True,
-        syndrome="xla")
-    np.testing.assert_array_equal(np.asarray(bk), np.asarray(bx))
-    assert (np.asarray(bk) == 0).all()
-    np.testing.assert_array_equal(np.asarray(tk), np.asarray(tx))
-    # under-budget (4 of the ~6 sweeps this batch needs)
-    _, bk4, _ = ldpc_pallas.decode_qc_pallas(
-        jnp.asarray(llr), "C4", n_iters=4, interpret=True,
-        syndrome="kernel")
-    _, bx4, _ = ldpc_pallas.decode_qc_pallas(
-        jnp.asarray(llr), "C4", n_iters=4, interpret=True,
-        syndrome="xla")
-    ok_k = np.asarray(bk4) == 0
-    ok_x = np.asarray(bx4) == 0
-    assert not (ok_k & ~ok_x).any(), "online count claimed a dirty frame clean"
+    code = ldpc_spec.get_code("C4")
+    for n_iters in (12, 4):
+        hard, bad, _ = ldpc_pallas.decode_qc_pallas(
+            jnp.asarray(llr), "C4", n_iters=n_iters, interpret=True)
+        exact = np.array([code.check_syndrome(h) for h in np.asarray(hard)])
+        ok_k = np.asarray(bad) == 0
+        if n_iters == 12:
+            assert ok_k.all() and (exact == 0).all()
+        assert not (ok_k & (exact != 0)).any(), \
+            "online count claimed a dirty frame clean"
 
 
 def test_full_range_messages_hit_error_floor(noisy_case):
@@ -190,22 +201,17 @@ def test_full_range_messages_hit_error_floor(noisy_case):
     assert errs > 0, "full-range messages unexpectedly converged"
 
 
-def test_cyclic_lane_padding_trials_parity(noisy_case):
-    """Cyclic lane padding (small blocks repeated to fill the 128
-    lanes, models/dvbs2.py fec="pallas") must behave exactly like the
-    originals: each padded copy converges at ITS original's sweep count
-    and decodes to the same bits, so the early-exit gate and trial
-    metrics see no phantom work. (On chip the padded decode measured
-    FASTER than 128 distinct frames — lanes are 128 wide regardless;
-    PROFILE_r4.md "Variable-batch".)"""
+def test_repeated_frames_decode_identically(noisy_case):
+    """Each program decodes its own frame: copies of a frame anywhere
+    in the batch converge at the original's sweep count and decode to
+    the same bits, whatever their neighbours."""
     llr, cw = noisy_case
     F = 2
-    small = llr[:F]
-    padded = np.tile(small, (ldpc_pallas.B // F, 1))
+    batch = np.tile(llr[:F], (3, 1))
     h, nb, tr = ldpc_pallas.decode_qc_pallas(
-        jnp.asarray(padded), "C4", n_iters=8, interpret=True)
+        jnp.asarray(batch), "C4", n_iters=8, interpret=True)
     h, nb, tr = np.asarray(h), np.asarray(nb), np.asarray(tr)
-    for lane in range(ldpc_pallas.B):
+    for lane in range(len(batch)):
         src = lane % F
         assert np.array_equal(h[lane], h[src]), lane
         assert tr[lane] == tr[src] and nb[lane] == nb[src]
@@ -213,53 +219,52 @@ def test_cyclic_lane_padding_trials_parity(noisy_case):
     assert (nb[:F] == 0).all()
 
 
-def test_roll_and_stash_variants_bit_exact(noisy_case):
-    """The prim-roll (pltpu.roll) and int8 sign-stash kernel variants
-    are pure lowering changes: every (roll_impl, stash8) combo must
-    produce the identical hard bits / syndromes / trials."""
-    llr, _ = noisy_case
-    ref = None
-    for roll in ("buffer", "prim"):
-        for s8 in (False, True):
-            out = ldpc_pallas.decode_qc_pallas(
-                jnp.asarray(llr), "C4", n_iters=3, interpret=True,
-                early_exit=False, roll_impl=roll, stash8=s8)
-            out = [np.asarray(o) for o in out]
-            if ref is None:
-                ref = out
-                continue
-            for a, b in zip(out, ref):
-                np.testing.assert_array_equal(a, b)
+def test_kernel_any_frame_count(noisy_case):
+    """One program per frame: a batch of 3 frames (a multiple of no
+    block width) decodes each frame as a batch of one would."""
+    llr, cw = noisy_case
+    h3, b3, t3 = ldpc_pallas.decode_qc_pallas(
+        jnp.asarray(llr[:3]), "C4", n_iters=12, interpret=True)
+    assert np.asarray(h3).shape == (3, cw.shape[1])
+    np.testing.assert_array_equal(np.asarray(h3), cw[:3])
+    for f in range(3):
+        h1, b1, t1 = ldpc_pallas.decode_qc_pallas(
+            jnp.asarray(llr[f:f + 1]), "C4", n_iters=12, interpret=True)
+        np.testing.assert_array_equal(np.asarray(h1)[0], np.asarray(h3)[f])
+        assert int(t1[0]) == int(t3[f]) and int(b1[0]) == int(b3[f])
 
 
-def test_oriented_schedule_bit_exact(noisy_case):
-    """Oriented posterior storage (pass-2 write-back without the inverse
-    roll; shift composition baked into the static tables,
-    kernel_tables_oriented) must be bit-identical to the natural
-    schedule — hard bits, syndromes, and trials — under both fixed and
-    early-exit sweep loops."""
-    llr, _ = noisy_case
-    for ee in (False, True):
-        ref = ldpc_pallas.decode_qc_pallas(
-            jnp.asarray(llr), "C4", n_iters=3, interpret=True,
-            early_exit=ee, schedule="natural")
-        got = ldpc_pallas.decode_qc_pallas(
-            jnp.asarray(llr), "C4", n_iters=3, interpret=True,
-            early_exit=ee, schedule="oriented")
-        for a, b in zip(ref, got):
-            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+@pytest.mark.parametrize("table", ["B1", "B4", "B11", "C1", "C5", "C10"])
+def test_kernel_tables_consistency(table):
+    """Schedule-table invariants: every layer holds its info entries +
+    the two parity entries (the rest invalid), each entry's (group,
+    shift) round-trips through the packing, and `wave` counts the
+    earlier entries of the same group in the layer."""
+    kt = ldpc_pallas.kernel_tables(table)
+    t = qc_tables(table)
+    G, q, tab = kt["G"], kt["q"], kt["tab"]
+    g = tab & 511
+    s = (tab >> 9) & 511
+    f = (tab >> 18) & 3
+    w = tab >> 20
+    for r in range(q):
+        n_valid = int((f[r] & ldpc_pallas.F_VALID).sum())
+        assert n_valid == len(t["layers"][r]) + 2
+        ents = list(t["layers"][r]) + [(G + r, 0)] + \
+            [(G + q - 1, 1) if r == 0 else (G + r - 1, 0)]
+        for e, (ge, se) in enumerate(ents):
+            assert (g[r, e], s[r, e]) == (ge, se)
+            assert w[r, e] == [x for x, _ in ents[:e]].count(ge)
+    assert kt["waves"] == int(w.max()) + 1
 
 
-def test_oriented_tables_consistency():
-    """Table-build invariants across every DVB-S2 code: the steady
-    orientation is the schedule fixed point, dup entries sit in the
-    static roll region, and slot counts cover every entry."""
-    from dvbs_tpu.ops.ldpc_qc import qc_tables
-    for table in ("B1", "B4", "B11", "C1", "C5", "C9", "C10"):
-        kt = ldpc_pallas.kernel_tables_oriented(table)
-        t = qc_tables(table)
-        q, D2, rz = kt["q"], kt["Dmax"], kt["rz"]
-        f = kt["f_tab"]
-        for r in range(q):
-            n_valid = int((f[r] & ldpc_pallas.F_VALID).sum())
-            assert n_valid == len(t["layers"][r]) + 2
+@pytest.mark.parametrize("table", ["B4", "C4"])
+def test_kernel_lowers_for_triton(table):
+    """The kernel lowers through Pallas' Triton route for a CUDA
+    target (the compile to device code happens on the card)."""
+    n = qc_tables(table)["N"]
+    lowered = jax.jit(
+        lambda x: ldpc_pallas.decode_qc_pallas(x, table, n_iters=12)
+    ).trace(jnp.zeros((5, n), jnp.int8)).lower(
+        lowering_platforms=("cuda",))
+    assert "triton" in lowered.as_text()

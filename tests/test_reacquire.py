@@ -1,5 +1,5 @@
 """Frame-sync robustness: reacquisition after signal loss and timing
-steps (VERDICT r3 item 4 — the reference re-correlates the SOF+PLS at
+steps (the reference re-correlates the SOF+PLS at
 every frame boundary, dvbs2_pl_sync.cpp:102-161; our batched locator
 gets the same resilience from the per-frame relocation fallback in
 plsync.locate_frames plus the piecewise tau path in

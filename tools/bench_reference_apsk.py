@@ -3,9 +3,9 @@
 
 Extends REFBENCH.json (tools/bench_reference.py) with measured LDPC
 throughput and derived per-core Msamp/s bounds for the higher-order
-configurations that have on-chip numbers (PROFILE_r4.md): 8PSK 3/4 +
-pilots, 16APSK 2/3 + pilots, 32APSK 3/4 + pilots — so the on-chip
-rates have honest reference denominators per constellation family.
+configurations bench.py runs: 8PSK 3/4 + pilots, 16APSK 2/3 + pilots,
+32APSK 3/4 + pilots — so the device rates have honest reference
+denominators per constellation family.
 
 LLRs are produced the way the reference itself would see them: our TX
 oracle modulates real BBFRAMEs (dvbs_tpu.tx, interop-validated), AWGN
@@ -32,8 +32,8 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 ".."))
 import ref_oracle as R  # noqa: E402
 
-# (label, modcod, operating Es/N0 dB — the SNRs the on-chip numbers use:
-# bench.py bench_8psk_pilots 9.5 dB, tools/measure_apsk_r4.py 11/14.5 dB)
+# (label, modcod, operating Es/N0 dB — the SNRs bench.py's
+# bench_hiord_bank gates use: 9.5, 11 and 14.5 dB)
 CONFIGS = [
     ("8psk_34_pilots", 14, 9.5),
     ("16apsk_23_pilots", 18, 11.0),
@@ -107,7 +107,7 @@ def main() -> int:
             "all16_trials": trw,
             "sec_per_call_all16": tw,
         }
-        # derived per-core bound at the PILOTED frame length the on-chip
+        # derived per-core bound at the PILOTED frame length the device
         # numbers use (samples/frame = 2 * plframe_len)
         cfg_p = modcod.get_config(mc, short=False, pilots=True)
         spf = 2 * cfg_p.plframe_len
